@@ -1,6 +1,6 @@
 """Profiler-attachable loop (parity: src/examples/test_sift_gpu_debug.cpp —
 upload/detect/download round-trips with timing prints; the reference's
-DebugPresenter frame-delimiter hack becomes an XProf trace session)."""
+DebugPresenter frame-delimiter hack becomes a jax.profiler trace session)."""
 
 import os
 import sys
@@ -18,7 +18,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--trace-dir", default=None,
-                    help="write an XProf trace (the DebugPresenter analogue)")
+                    help="write a jax.profiler trace (the DebugPresenter analogue)")
     args = ap.parse_args()
 
     import cv2

@@ -3,7 +3,7 @@
 //
 // The reference implements its host-side runtime in C (staging buffers,
 // async transfer queues overlapping DMA with compute —
-// src/vulkansift/sift_memory.c, vkenv/*). On TPU the device side of that
+// src/vulkansift/sift_memory.c, vkenv/*). Here the device side of that
 // role belongs to XLA/PJRT, but the HOST side — feeding images from disk
 // ahead of the accelerator — is still native work. This library provides:
 //

@@ -4,10 +4,11 @@ Compares single-image pipelined dispatch vs vmapped batched detect at the
 same resolution. Usage: python scripts/batchbench.py [WxH] [B]
 """
 
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 import jax.numpy as jnp

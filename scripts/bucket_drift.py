@@ -23,7 +23,7 @@ sys.path.insert(0, REPO)
 
 import jax
 
-if os.environ.get("BUCKET_DRIFT_TPU") != "1":
+if os.environ.get("BUCKET_DRIFT_ON_DEVICE") != "1":
     jax.config.update("jax_platforms", "cpu")
 
 import numpy as np

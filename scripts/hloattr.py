@@ -5,8 +5,8 @@ Optimized-HLO instructions often carry no metadata themselves (fusions);
 their fused computations do. This module parses a compiled module's text
 once and exposes ``build_attr(text)`` returning
 ``{instr_name: (scope, src)}`` for every top-level entry instruction —
-used by hlocount.py (static census) and tracebench.py (XProf trace
-attribution, where trace event names equal HLO instruction names).
+used by tracebench.py (profiler trace attribution, where trace event
+names equal HLO instruction names).
 """
 
 import collections

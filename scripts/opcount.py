@@ -1,26 +1,26 @@
 """Static glue census: count lowered StableHLO ops per pipeline stage.
 
-The XProf trace showed a ~12 ms "long tail of sub-0.3 ms fusions" at
-1536x1024 (docs/PERFORMANCE.md). Each tiny fusion is real dispatch +
-read-modify-write traffic; the tail's size tracks the number of ops the
-program lowers to. This tool needs NO hardware: it lowers the full jitted
+A device trace of the detect program shows a long tail of small fusions.
+Each tiny fusion is real dispatch + read-modify-write traffic; the tail's
+size tracks the number of ops the program lowers to. This tool needs NO hardware: it lowers the full jitted
 detect for the current backend and attributes every StableHLO op to the
 enclosing ``jax.named_scope`` stage and to the deepest
 ``vulkansift_tpu`` source line recorded in the op's location metadata —
 naming exactly which pipeline lines emit the op-count mass.
 
-It is a *proxy* (XLA later fuses aggressively, and CPU/TPU fusion choices
+It is a *proxy* (XLA later fuses aggressively, and CPU/GPU fusion choices
 differ), but scope-relative op mass correlates with the trace tail and is
-measurable while the chip is unavailable.
+measurable without the card.
 
-Usage:  python scripts/opcount.py [WxH] [top] [--xla|--pallas]
+Usage:  python scripts/opcount.py [WxH] [top]
 """
 
 import collections
 import re
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
@@ -30,10 +30,9 @@ import numpy as np  # noqa: E402
 
 
 def main():
-    args = [a for a in sys.argv[1:] if not a.startswith("--")]
+    args = sys.argv[1:]
     wh = args[0] if args else "1536x1024"
     top = int(args[1]) if len(args) > 1 else 40
-    backhalf = "pallas" if "--pallas" in sys.argv else "xla"
     w, h = map(int, wh.split("x"))
 
     from vulkansift_tpu import SiftConfig
@@ -43,7 +42,7 @@ def main():
                      max_nb_sift_per_buffer=16384,
                      sift_buffer_count=1,
                      input_image_max_size=w * h)
-    detect = jax.jit(make_detect_fn(cfg, w, h, backhalf=backhalf))
+    detect = jax.jit(make_detect_fn(cfg, w, h))
     img = np.zeros((h, w), np.uint8)
     lowered = detect.lower(img)
     text = lowered.as_text(debug_info=True)
@@ -101,7 +100,7 @@ def main():
         pair_counts[(stage, src or "?", op)] += 1
 
     print(f"# total non-constant stablehlo ops: {total} "
-          f"({wh}, backhalf={backhalf})")
+          f"({wh})")
     print("\n## ops per stage")
     for k, v in scope_counts.most_common():
         print(f"{v:6d}  {k}")

@@ -9,10 +9,11 @@ reports wall-clock and its compile share for bucket=1 vs bucket=128.
 Usage: python scripts/sweepbench.py [imgs_per_set]
 """
 
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 

@@ -1,25 +1,25 @@
-"""XProf trace attribution for the detect pipeline: name the glue tail.
+"""Profiler trace attribution for the detect pipeline: name the glue tail.
 
 Runs the full jitted detect at a given resolution under
-``jax.profiler.start_trace``, then parses the produced trace
-(``*.trace.json.gz``) and aggregates per-HLO-op device time by (a) the
-``jax.named_scope`` pipeline stage embedded in the op metadata and (b) the
-individual op name — printing the top-K ops so every sub-0.3 ms fusion in
-the "long tail" gets a name and a pipeline line to blame.
+``jax.profiler.start_trace``, then reads the device planes of the produced
+``*.xplane.pb`` with ``jax.profiler.ProfileData`` and aggregates per-HLO-op
+device time by (a) the ``jax.named_scope`` pipeline stage of each op
+(from the compiled HLO's metadata, scripts/hloattr.py) and (b) the
+individual op name — printing the top-K ops so every small fusion in the
+"long tail" gets a name and a pipeline line to blame.
 
-Usage:  python scripts/tracebench.py [WxH] [iters] [top]
-Output: per-stage table + top-K op table (ms per frame, averaged).
+Usage:  python scripts/tracebench.py [WxH] [iters] [top] [trace_dir]
+Output: device lines seen, per-stage table + top-K op table (ms per frame,
+averaged over ``iters`` frames).
 """
 
 import collections
 import glob
-import gzip
-import json
 import os
 import sys
 import tempfile
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 import jax.numpy as jnp
@@ -43,31 +43,32 @@ def bench_image(h, w, seed=0):
     return (255 * img / img.max()).astype(np.uint8)
 
 
-def load_trace_events(trace_dir):
-    paths = glob.glob(os.path.join(trace_dir, "**", "*.trace.json.gz"),
+# Most specific first: nested scopes (ExtractKeypoints/DenseFrontend) must
+# be attributed to the inner stage.
+SCOPES = ("DenseFrontend", "Refine", "ScaleSpace", "ComputeOrientation",
+          "ComputeDescriptors", "PackFeatures", "Matching",
+          "ExtractKeypoints")
+
+
+def device_events(trace_dir):
+    """(line, name, dur_ns, stats) for the op events on the device planes
+    of the newest trace under ``trace_dir``. Uses the "XLA Ops" line when
+    the plane has one (one event per executed HLO op), else every line."""
+    from jax.profiler import ProfileData
+    paths = glob.glob(os.path.join(trace_dir, "**", "*.xplane.pb"),
                       recursive=True)
     assert paths, f"no trace files under {trace_dir}"
-    path = max(paths, key=os.path.getmtime)
-    with gzip.open(path, "rt") as f:
-        data = json.load(f)
-    return data["traceEvents"]
-
-
-def device_ops(events):
-    """Yield (name, dur_us, args) for complete events on the TPU device
-    track (skip host threads and derived lines)."""
-    # Find pids whose process name mentions TPU / device.
-    proc_names = {}
-    for e in events:
-        if e.get("ph") == "M" and e.get("name") == "process_name":
-            proc_names[e["pid"]] = e["args"].get("name", "")
-    tpu_pids = {pid for pid, n in proc_names.items()
-                if ("TPU" in n or "/device" in n.lower()) and "Steps" not in n}
-    for e in events:
-        if e.get("ph") != "X" or e.get("pid") not in tpu_pids:
+    pd = ProfileData.from_file(max(paths, key=os.path.getmtime))
+    for plane in pd.planes:
+        if not plane.name.startswith("/device:"):
             continue
-        name = e.get("name", "")
-        yield name, e.get("dur", 0), e.get("args", {}) or {}
+        lines = list(plane.lines)
+        print(f"# {plane.name}: " + ", ".join(
+            f"{ln.name} ({len(list(ln.events))})" for ln in lines))
+        ops = [ln for ln in lines if ln.name == "XLA Ops"] or lines
+        for ln in ops:
+            for e in ln.events:
+                yield ln.name, e.name, e.duration_ns, dict(e.stats)
 
 
 def main():
@@ -104,32 +105,30 @@ def main():
     for _ in range(3):
         int(detect(img).features.count)
 
-    tdir = tempfile.mkdtemp(prefix="vstrace_")
+    tdir = (sys.argv[4] if len(sys.argv) > 4
+            else tempfile.mkdtemp(prefix="vstrace_"))
     jax.profiler.start_trace(tdir)
     for _ in range(iters):
         out = detect(img)
-    int(out.features.count)
+    jax.block_until_ready(out)
     jax.profiler.stop_trace()
 
-    events = list(device_ops(load_trace_events(tdir)))
     by_op = collections.Counter()
     op_count = collections.Counter()
     by_scope = collections.Counter()
     samples = {}
-    for name, dur, args in events:
+    for _line, name, dur, args in device_events(tdir):
+        dur = dur / 1e3  # ns -> us
         by_op[name] += dur
         op_count[name] += 1
-        # tf_op / long_name metadata carries the named_scope path.
         meta = (args.get("tf_op") or args.get("long_name")
                 or args.get("hlo_op") or "")
         # The HLO-derived map resolves fusions with no metadata.
-        hname = name.lstrip("%")
+        hname = str(args.get("hlo_op") or name).lstrip("%")
         hscope, hsrc = hlo_attr.get(hname, ("", "?"))
         scope = "?"
-        for s in ("ScaleSpace", "ExtractKeypoints", "AtlasBuild",
-                  "ComputeOrientation", "ComputeDescriptors",
-                  "PackFeatures", "Matching"):
-            if (s in str(meta) or s in str(args) or s in hscope):
+        for s in SCOPES:
+            if s in hscope or s in str(meta):
                 scope = s
                 break
         by_scope[scope] += dur

@@ -1,4 +1,4 @@
-"""Golden tests for the MXU-tiled 2-NN matcher
+"""Golden tests for the matmul-tiled 2-NN matcher
 (reference semantics: shaders/Get2NearestNeighbors.comp)."""
 
 import numpy as np
@@ -90,68 +90,3 @@ def test_lowe_ratio_and_cross_check():
                      jnp.asarray(base), jnp.asarray(60))
     cc = np.asarray(cross_check_mask(m_ab, m_ba))
     assert cc.all()
-
-
-def test_match_fused_bit_identical(monkeypatch):
-    """The fused Pallas kernel (interpret mode on CPU) must reproduce
-    match_2nn exactly: indices, distances, tie-breaking, count masking."""
-    import pytest
-    from vulkansift_tpu.ops import pallas_match
-    from vulkansift_tpu.ops.match import match_2nn_fused
-
-    orig = pallas_match.pl.pallas_call
-
-    def patched(*a, **k):
-        k["interpret"] = True
-        return orig(*a, **k)
-
-    monkeypatch.setattr(pallas_match.pl, "pallas_call", patched)
-
-    rng = np.random.default_rng(11)
-    a = _rand_desc(rng, 1100)
-    b = _rand_desc(rng, 700)
-    # Ties across tile boundaries: duplicate a few descriptors.
-    b[650] = b[10]
-    b[600] = a[5]
-    b[100] = a[5]
-    ca, cb = 1030, 660
-    mf = match_2nn_fused(jnp.asarray(a), jnp.asarray(ca),
-                         jnp.asarray(b), jnp.asarray(cb))
-    mx = match_2nn(jnp.asarray(a), jnp.asarray(ca),
-                   jnp.asarray(b), jnp.asarray(cb))
-    live = np.arange(a.shape[0]) < ca
-    np.testing.assert_array_equal(np.asarray(mf.idx_b1)[live],
-                                  np.asarray(mx.idx_b1)[live])
-    np.testing.assert_array_equal(np.asarray(mf.idx_b2)[live],
-                                  np.asarray(mx.idx_b2)[live])
-    np.testing.assert_array_equal(np.asarray(mf.dist_a_b1)[live],
-                                  np.asarray(mx.dist_a_b1)[live])
-    np.testing.assert_array_equal(np.asarray(mf.dist_a_b2)[live],
-                                  np.asarray(mx.dist_a_b2)[live])
-    # Rows past count_a are meaningless per contract (a tile straddling
-    # count_a computes them; whole tiles past it keep the init marker) —
-    # just check they are finite-or-inf, never NaN.
-    assert not np.isnan(np.asarray(mf.dist_a_b1)[~live]).any()
-
-
-def test_match_fused_tiny_count(monkeypatch):
-    from vulkansift_tpu.ops import pallas_match
-    from vulkansift_tpu.ops.match import match_2nn_fused
-
-    orig = pallas_match.pl.pallas_call
-
-    def patched(*a, **k):
-        k["interpret"] = True
-        return orig(*a, **k)
-
-    monkeypatch.setattr(pallas_match.pl, "pallas_call", patched)
-
-    rng = np.random.default_rng(12)
-    a = _rand_desc(rng, 64)
-    b = _rand_desc(rng, 64)
-    # count_b == 1: second neighbor must be +inf.
-    m = match_2nn_fused(jnp.asarray(a), jnp.asarray(4),
-                        jnp.asarray(b), jnp.asarray(1))
-    d2 = np.asarray(m.dist_a_b2)[:4]
-    assert np.isinf(d2).all()
-    assert (np.asarray(m.idx_b1)[:4] == 0).all()

@@ -6,7 +6,8 @@ sharding semantics but never exercises ``mesh.init_distributed`` — this
 test launches scripts/multihost_smoke.py, which spawns two local processes,
 initializes the distributed runtime over localhost gRPC, builds one global
 2x2-device mesh, and runs DP detect + distributed (psum) bundle adjustment
-against their single-device equivalents.
+against their single-device equivalents. The workers run on the CPU
+backend only (``JAX_PLATFORMS=cpu`` in their environment).
 """
 
 import pytest
@@ -21,6 +22,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_two_process_distributed_smoke():
     env = dict(os.environ)
     env["SMOKE_PORT"] = "17846"  # avoid clashes with manual runs
+    env["JAX_PLATFORMS"] = "cpu"  # the script's parent stays off any GPU
     proc = subprocess.run(
         [sys.executable, os.path.join(REPO, "scripts", "multihost_smoke.py")],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=900)

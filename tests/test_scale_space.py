@@ -49,21 +49,6 @@ def test_blur_matches_scipy():
     np.testing.assert_allclose(ours, ref, atol=2e-6)
 
 
-def test_mxu_banded_matmul_blur_matches_vpu():
-    """The TPU-only banded-MXU H/V conv formulations must be numerically
-    interchangeable with the VPU shift-MAC chain (they are switched purely
-    on shape/backend, scale_space.blur_separable)."""
-    rng = np.random.default_rng(2)
-    img = rng.standard_normal((300, 700)).astype(np.float32)
-    taps = gaussian.half_kernel(2.01)
-    ref_h = np.asarray(scale_space._conv1d_symmetric(img, taps, axis=1))
-    ref_v = np.asarray(scale_space._conv1d_symmetric(img, taps, axis=0))
-    got_h = np.asarray(scale_space._hconv_matmul(img, taps))
-    got_v = np.asarray(scale_space._vconv_matmul(img, taps))
-    np.testing.assert_allclose(got_h, ref_h, atol=2e-6)
-    np.testing.assert_allclose(got_v, ref_v, atol=2e-6)
-
-
 def test_upsample2x_matches_golden():
     rng = np.random.default_rng(2)
     img = rng.random((12, 17)).astype(np.float32)

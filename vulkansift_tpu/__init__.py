@@ -1,10 +1,10 @@
-"""vulkansift_tpu — a TPU-native SIFT front-end and SfM engine.
+"""vulkansift_tpu — a JAX SIFT front-end and SfM engine.
 
-A brand-new JAX/XLA/Pallas implementation with the capabilities of
+A brand-new JAX/XLA implementation with the capabilities of
 VulkanSift (github.com/maelaubert/VulkanSift): gaussian scale-space
 construction, DoG extrema detection with subpixel refinement, orientation
 assignment, 128-D UBC/VLFeat descriptors, and brute-force 2-NN matching —
-plus batched multi-image detection and sharded matching over TPU meshes.
+plus batched multi-image detection and sharded matching over device meshes.
 
 See SURVEY.md at the repository root for the structural map of the
 reference this build follows.

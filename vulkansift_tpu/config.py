@@ -5,7 +5,7 @@ A frozen dataclass mirroring the reference's ``vksift_Config`` field-for-field
 defaults (reference: src/vulkansift/vulkansift.c:47-64) and the same central
 validation conditions (reference: src/vulkansift/vulkansift.c:550-584).
 
-TPU-specific notes:
+Implementation notes:
 
 * ``pyramid_precision`` FLOAT16 stores pyramids as IEEE fp16, exactly like
   the reference (halved pyramid memory, slightly looser tolerances). fp16's
@@ -13,8 +13,9 @@ TPU-specific notes:
   differences behind gradients and collapses match recall (measured).
 * ``use_hardware_interpolated_blur`` is accepted for compatibility but is a
   no-op: the linear-texture-fetch trick (reference: src/vulkansift/
-  sift_detector.c:122-135) halves *texture fetches* on a GPU sampler; on TPU
-  the separable blur is a dense conv/matmul and gains nothing from it.
+  sift_detector.c:122-135) halves *texture fetches* on a GPU sampler; here
+  the separable blur is a dense shift-and-add pass and gains nothing from
+  it.
 * ``gpu_device_index`` selects among ``jax.devices()``.
 """
 
@@ -97,18 +98,19 @@ class SiftConfig:
     # --- Device and implementation configuration ---
     # Index into jax.devices(); <0 = auto-select (first device).
     device_index: int = -1
-    # Accepted for reference compatibility; no-op on TPU (see module docs).
+    # Accepted for reference compatibility; no-op here (see module docs).
     use_hardware_interpolated_blur: bool = True
     # FLOAT32 or FLOAT16 (IEEE fp16 storage) scale-space pyramid precision.
     pyramid_precision: PyramidPrecision = PyramidPrecision.FLOAT32
 
-    # --- TPU-specific knobs (no reference equivalent) ---
+    # --- Implementation knobs (no reference equivalent) ---
     # Keep the gaussian/DoG pyramids resident per buffer so the
     # download_scale_space_image/download_dog_image debug APIs work
-    # (reference keeps them on GPU always; on TPU retaining them costs HBM).
+    # (reference keeps them on GPU always; retaining them costs device
+    # memory).
     retain_pyramid: bool = True
     # Round input resolutions up to multiples of this bucket so XLA compiles
-    # a bounded number of program shapes (the TPU analogue of the reference's
+    # a bounded number of program shapes (the analogue of the reference's
     # image re-creation on preallocated memory, sift_memory.c:891-924).
     # 0 = AUTO (default): the first two distinct resolutions get exact
     # programs (bit-identical to bucket 1 for the common fixed-resolution

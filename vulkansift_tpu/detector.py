@@ -1,6 +1,6 @@
 """SIFT detection pipeline orchestration.
 
-The TPU-native replacement for the reference's SiftDetector + its recorded
+The replacement for the reference's SiftDetector + its recorded
 command buffer (reference: src/vulkansift/sift_detector.c:1313-1410 and
 vksift_dispatchSiftDetection :1462-1542). Where the reference launches
 data-dependent work with GPU-side atomics + ``vkCmdDispatchIndirect``

@@ -7,7 +7,7 @@ Mirrors the reference's 3-value ``vksift_Result`` contract
 * ``Result.INVALID_INPUT_ERROR`` — detected early, instance stays usable
   (maps to :class:`InvalidInputError`).
 * ``Result.VULKAN_ERROR`` — device/runtime failure poisoning the instance
-  (maps to :class:`DeviceError`; on TPU this wraps XLA/PJRT failures).
+  (maps to :class:`DeviceError`; this wraps XLA/PJRT failures).
 
 The reference dispatches failures through a user-installable error callback
 (reference: src/vulkansift/vulkansift.c:31-45); Python users get exceptions,

@@ -335,6 +335,34 @@ def match_2nn_np(desc_a: np.ndarray, desc_b: np.ndarray) -> np.ndarray:
     return out
 
 
+def match_2nn_dense_np(desc_a: np.ndarray, desc_b: np.ndarray,
+                       chunk: int = 1024) -> np.ndarray:
+    """Vectorized :func:`match_2nn_np` for large sets (kept separate: the
+    scalar scan is the oracle; this one makes 4k x 4k comparisons
+    affordable). Exact integer distances; argmin takes the earliest index,
+    and masking the winner before the second argmin reproduces the serial
+    scan's strict-``<`` updates. Returns (NA, 4): i1, i2 and the SQUARED
+    distances d1^2, d2^2 (exact in float64; +inf when B has < 2 rows)."""
+    a = desc_a.astype(np.int64)
+    b = desc_b.astype(np.int64)
+    b_sq = (b * b).sum(1)
+    out = np.zeros((a.shape[0], 4))
+    rows = np.arange(chunk)
+    for lo in range(0, a.shape[0], chunk):
+        ac = a[lo:lo + chunk]
+        r = rows[:ac.shape[0]]
+        d = ((ac * ac).sum(1)[:, None] + b_sq[None, :]
+             - 2 * ac @ b.T).astype(np.float64)
+        i1 = np.argmin(d, axis=1)
+        d1 = d[r, i1]
+        d[r, i1] = np.inf
+        i2 = np.argmin(d, axis=1)
+        d2 = d[r, i2]
+        i2 = np.where(np.isinf(d2), 0, i2)
+        out[lo:lo + chunk] = np.stack([i1, i2, d1, d2], 1)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Full-image detection (composition of the stages above)
 # ---------------------------------------------------------------------------
@@ -372,8 +400,10 @@ def detect_np(image: np.ndarray, config: SiftConfig,
     (the VLFeat-slot analogue in src/perf/perf_common.cpp:42-61)."""
     cfg = config
     s_per = cfg.nb_scales_per_octave
+    if image.dtype == np.uint8:  # same [0, 1] scaling as the pipeline
+        image = image.astype(np.float64) / 255.0
     gaussians, dogs = build_pyramid_np(image, cfg)
-    thr = cfg.dog_threshold / s_per
+    thr = cfg.dog_threshold  # already divided by nb_scales (config.py)
     feats: List[dict] = []
     for o, (g, d) in enumerate(zip(gaussians, dogs)):
         octave_idx = o - (1 if cfg.use_input_upsampling else 0)

@@ -25,7 +25,7 @@ vksift_getScaleSpaceNbOctaves  SiftInstance.get_scale_space_nb_octaves
 vksift_getScaleSpaceOctave...  SiftInstance.get_scale_space_octave_resolution
 vksift_downloadScaleSpaceImage SiftInstance.download_scale_space_image
 vksift_downloadDoGImage        SiftInstance.download_dog_image
-vksift_presentDebugFrame       SiftInstance.start_trace/stop_trace (XProf)
+vksift_presentDebugFrame       SiftInstance.start_trace/stop_trace (jax.profiler)
 =============================  =========================================
 
 Async contract parity (vulkansift.h:40-47): ``detect_features`` /
@@ -58,7 +58,6 @@ from .detector import SiftDetector
 from .pipeline import make_detect_fn, octave_plan
 from .errors import DeviceError, InvalidInputError, Result
 from .ops.match import match_2nn, match_2nn_auto
-from .utils.backend import is_tpu_backend
 from .types import (FEATURE_DTYPE, Features, Matches2NN, features_from_numpy,
                     features_to_numpy, matches_to_numpy)
 from .utils.logging import logger
@@ -236,7 +235,7 @@ class SiftInstance:
             # compile exact programs (single-/dual-resolution workloads stay
             # bit-identical to resolution_bucket=1); any further NEW
             # resolution switches to bucket-64 programs so mixed-resolution
-            # sweeps compile a bounded set — the TPU analogue of the
+            # sweeps compile a bounded set — the analogue of the
             # reference's zero-cost image re-creation on preallocated
             # memory (sift_memory.c:891-924). Measured quality drift of the
             # bucketed path: results/bucket_drift.txt.
@@ -297,23 +296,16 @@ class SiftInstance:
 
         Fully async: no host round-trip between detect and match dispatch —
         the live counts stay device-resident and the matcher scales
-        compute with them (tile-step skipping in the fused Pallas kernel
-        on TPU, bucketed dispatch in ops.match.match_2nn_auto elsewhere),
+        compute with them (bucketed dispatch in ops.match.match_2nn_auto),
         the analogue of the reference reading counters from mapped memory
         before recording the dispatch (sift_memory.c:957-1047)."""
         buf_a = self._check_buffer(buffer_id_a)
         buf_b = self._check_buffer(buffer_id_b)
         try:
             with jax.default_device(self.device):
-                if is_tpu_backend():
-                    from .ops.match import match_2nn_fused
-                    self._matches = match_2nn_fused(
-                        buf_a.features.descriptor, buf_a.features.count,
-                        buf_b.features.descriptor, buf_b.features.count)
-                else:
-                    self._matches = match_2nn_auto(
-                        buf_a.features.descriptor, buf_a.features.count,
-                        buf_b.features.descriptor, buf_b.features.count)
+                self._matches = match_2nn_auto(
+                    buf_a.features.descriptor, buf_a.features.count,
+                    buf_b.features.descriptor, buf_b.features.count)
         except Exception as e:  # noqa: BLE001
             self._dispatch_error(Result.DEVICE_ERROR)
             raise DeviceError("matching pipeline failure") from e
@@ -455,7 +447,7 @@ class SiftInstance:
 
     # -- profiling hooks (the DebugPresenter analogue) --------------------
     def start_trace(self, log_dir: str) -> None:
-        """Start an XProf trace session — the TPU-native replacement for the
+        """Start a jax.profiler trace session — the replacement for the
         reference's DebugPresenter frame-delimiter hack
         (vkenv/debug_presenter.c:139-185)."""
         jax.profiler.start_trace(log_dir)

@@ -1,4 +1,4 @@
-"""128-D SIFT descriptor computation (pure XLA, MXU-friendly).
+"""128-D SIFT descriptor computation (pure XLA, matmul-shaped).
 
 Replaces the reference's ComputeDescriptors shader (reference:
 src/vulkansift/shaders/ComputeDescriptors.comp) — a 64-thread workgroup per
@@ -14,7 +14,7 @@ hat-function weight vectors::
     wo_p[o] = relu(1 - circdist_8(o, fbin_p))
 
 so the whole accumulation is one (4 x Np) @ (Np x 32) matmul per keypoint —
-MXU work with zero scatters/atomics, replacing the shader's fixed-point
+dense work with zero scatters/atomics, replacing the shader's fixed-point
 atomicAdd protocol (ComputeDescriptors.comp:40-77) which was itself an
 approximation of float accumulation.
 
@@ -47,6 +47,10 @@ from ..config import (DESC_SIZE, DescriptorFormat, L2_NORM_THRESHOLD,
 from .patches import PatchSet, patch_gradients
 
 _TWO_PI = 2.0 * jnp.pi
+# Precision of the histogram contraction. Full float32: TF32 inputs would
+# move bins that are then floored to u8. Read when the detect program is
+# traced; scripts/desc_precision_ab.py swaps it to time TF32 on the GPU.
+DESC_PRECISION = jax.lax.Precision.HIGHEST
 
 
 def _descriptor_chunk(patches, cx, cy, scale_x, scale_y, sigma_oct, width,
@@ -129,7 +133,7 @@ def _descriptor_chunk(patches, cx, cy, scale_x, scale_y, sigma_oct, width,
     # desc[y, x, o] = sum_p wy[p,y] * (mag[p] * wx[p,x] * wo[p,o])
     wxo = (wx[..., :, None] * wo[..., None, :]).reshape(k, n, NB_HIST * NB_ORI)
     wxo = wxo * mag[..., None]
-    desc = jnp.einsum("kpy,kpz->kyz", wy, wxo,
+    desc = jnp.einsum("kpy,kpz->kyz", wy, wxo, precision=DESC_PRECISION,
                       preferred_element_type=jnp.float32)  # (K, 4, 32)
     return desc.reshape(k, DESC_SIZE)
 

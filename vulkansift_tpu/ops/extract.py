@@ -1,18 +1,16 @@
 """DoG extrema detection and subpixel refinement (pure XLA, dense-first).
 
 Replaces the reference's ExtractKeypoints compute shader
-(reference: src/vulkansift/shaders/ExtractKeypoints.comp) with a TPU-native
-design built around dense vectorized passes instead of per-thread scalar
-work:
+(reference: src/vulkansift/shaders/ExtractKeypoints.comp) with a design
+built around dense vectorized passes instead of per-thread scalar work:
 
 1. :func:`extremum_candidates` — dense 3x3x3 strict-extremum test with the
    |v| > 0.8*dog_threshold pre-filter (ExtractKeypoints.comp:57-116),
    compacted to a static per-octave capacity with a cumsum + searchsorted
    rank-select (raster order, deterministic) — the XLA-idiomatic replacement
-   for the shader's atomicAdd append (ExtractKeypoints.comp:208-224), and
-   ~10x faster on TPU than jnp.nonzero(size=...).
+   for the shader's atomicAdd append (ExtractKeypoints.comp:208-224).
 2. :func:`refine_candidates` — the 5-step iterative subpixel refinement via
-   3x3 Hessian solve (ExtractKeypoints.comp:133-188). TPU-native split:
+   3x3 Hessian solve (ExtractKeypoints.comp:133-188). Dense/sparse split:
    the per-cell Newton step (gradient, Hessian solve, 0.6-convergence and
    move decision) is computed DENSELY for every interior DoG cell and packed
    into a one-byte walk code; each candidate then just *walks* the code
@@ -46,11 +44,6 @@ class Candidates(NamedTuple):
     y: jax.Array  # i32[K]
     x: jax.Array  # i32[K]
     count: jax.Array  # i32[]
-    # Walk code at the candidate's own cell (candidate bit stripped), or
-    # None. The Pallas frontend's compaction already holds the 128-lane
-    # code block each candidate lives in, so providing this is ~free and
-    # saves the refinement walk's step-0 code gather.
-    code0: Optional[jax.Array] = None  # i32[K] | None
 
 
 class RefinedKeypoints(NamedTuple):
@@ -67,6 +60,9 @@ class RefinedKeypoints(NamedTuple):
     y: jax.Array          # f32[K]
 
 
+# Switch point between the two rank_select formulations. Tuned on the
+# accelerator the system was first built for; not yet measured on the
+# H100 (ROADMAP S3).
 _RANK_SCATTER_MAX_N = 1 << 18
 
 
@@ -85,15 +81,13 @@ def bucket_sizes(total: int, lo: int = 2048):
 def rank_select(mask_flat: jax.Array, capacity: int) -> Tuple[jax.Array, jax.Array]:
     """Indices of the first ``capacity`` true elements, in order.
 
-    Two formulations, picked by mask size (both measured on v5e; both are
-    far faster than jnp.nonzero(size=), which lowers to a sort-like
-    pattern):
+    Two formulations, picked by mask size (``_RANK_SCATTER_MAX_N``); both
+    avoid jnp.nonzero(size=), which lowers to a sort-like pattern:
 
-    * small masks (<= ~256k): cumsum + 1-D rank scatter with out-of-range
-      drop — 0.17 ms at n=32k vs 3.8 ms for searchsorted (the binary
-      search issues capacity*log(n) random gathers).
-    * large masks: cumsum + searchsorted (scatter cost scales with n and
-      loses past ~300k).
+    * small masks: cumsum + 1-D rank scatter with out-of-range drop (the
+      binary search of the other arm issues capacity*log(n) random
+      gathers).
+    * large masks: cumsum + searchsorted (scatter cost scales with n).
 
     Returns (indices i32[capacity], true_count i32[] clamped to capacity).
     Slots beyond the true count are zero-filled.
@@ -235,8 +229,8 @@ def _newton_step(n000, n001, n002, n010, n011, n012, n020, n021, n022,
            - h12 * (h12 * h33 - h13 * h23)
            + h13 * (h12 * h23 - h13 * h22))
     singular = det == 0.0
-    # One reciprocal instead of six divides (div is multi-pass on the VPU;
-    # this runs densely over every interior DoG cell).
+    # One reciprocal instead of six divides (this runs densely over every
+    # interior DoG cell).
     rdet = 1.0 / jnp.where(singular, 1.0, det)
     inv11 = (h22 * h33 - h23 * h23) * rdet
     inv12 = -(h12 * h33 - h13 * h23) * rdet
@@ -258,8 +252,8 @@ def _walk_classify(n000, n001, n002, n010, n011, n012, n020, n021, n022,
     only needs each Newton offset classified into {<= -0.6, interior,
     >= 0.6}, and Cramer gives off_i = det_i / det — so compare the
     numerators det_i (sign-corrected by det) against 0.6*|det| directly.
-    Saves the VPU-multipass reciprocal and the 6 inverse-entry products
-    of :func:`_newton_step` over every dense cell. Returns (cs, cx, cy,
+    Saves the reciprocal and the 6 inverse-entry products of
+    :func:`_newton_step` over every dense cell. Returns (cs, cx, cy,
     conv, singular) with c* in {0, 1, 2} (the move-sign codes)."""
     g_s = 0.5 * (n211 - n011)
     g_x = 0.5 * (n112 - n110)
@@ -320,38 +314,11 @@ def _gather_flat(flat: jax.Array, idx: jax.Array) -> jax.Array:
     return flat[jnp.clip(idx, 0, flat.shape[0] - 1)]
 
 
-def _gather_neighborhood(flat: jax.Array, base: jax.Array, stride_layer,
-                         stride_row) -> dict:
-    """27-point (3x3x3) neighborhoods around flat indices ``base``, as 27
-    single-element (k,) gathers. Hardware (v5e): element gathers lower
-    to the fast 1-D gather path (vmapped dynamic slices are ~20x slower,
-    results/hw_r5a/gatherbench.log). A single folded (27, k) gather was
-    measured-and-REJECTED in-pipeline: refine +8.81 vs +6.53 ms at
-    1536x1024 (results/hw_r5c/stagebench_1536_default.log vs r5b) — the
-    2-D index array drops off the fast path, and the isolated
-    giant-source regime where folding won (gatherbench2) does not occur
-    in the per-octave bucketed refine. Callers guarantee base points at
-    interior cells; the clip only protects dummy slots."""
-    n = flat.shape[0]
-    nb = {}
-    for a in (0, 1, 2):
-        for b in (0, 1, 2):
-            row0 = base + (a - 1) * stride_layer + (b - 1) * stride_row
-            for c in (0, 1, 2):
-                idx = jnp.clip(row0 + c - 1, 0, n - 1)
-                nb[(a, b, c)] = flat[idx]
-    return nb
-
-
 def _gather_neighborhood_2d(d2: jax.Array, base_row: jax.Array,
                             layer_rows: int, col: jax.Array) -> dict:
     """27-point neighborhoods from a 2-D ``(S*H, W)`` view of the DoG
-    stack — 27 element gathers (see :func:`_gather_neighborhood` for the
-    measured-and-rejected folded single-gather alternative). The
-    (S, H, W) -> (S*H, W) reshape is a layout-preserving bitcast when H
-    is a multiple of the 8-row tile, while a 1-D flatten relayouts the
-    whole stack (1.9 ms at 3456x2304 octave 0, round-5 trace).
-    ``base_row = s*H + y``; ``layer_rows = H``."""
+    stack, as 27 element gathers. ``base_row = s*H + y``;
+    ``layer_rows = H``."""
     nr, w = d2.shape
     nb = {}
     for a in (0, 1, 2):
@@ -383,32 +350,24 @@ def refine_candidates(dog: jax.Array, cand: Candidates, *, nb_scales: int,
 
     if code is None:
         code = _dense_walk_code(dog)
-    # Two layouts: interior (S, H-2, W-2) indexed [s-1, y-1, x-1] (the XLA
-    # dense path) or full-width (S, HR, WP) indexed [s-1, y-1, x] (the
-    # Pallas frontend, ops/pallas_frontend; may carry a candidate bit).
-    full_width = code.shape[-1] >= w
+    # Interior layout (S, H-2, W-2), indexed [s-1, y-1, x-1].
     chr_, cwr = code.shape[1], code.shape[2]
     # Materialize the dense code field BEFORE the walk scan: without the
     # barrier XLA fuses the whole dense Newton computation into the while
     # body and recomputes it every step (~10 ms/octave at octave 0,
     # observed in traces) instead of gathering from 1 byte/cell in HBM.
     code = jax.lax.optimization_barrier(code)
-    # 2-D (S*HR, WR) view: layout-preserving (no relayout) when the row
-    # count is tile-aligned, unlike a 1-D flatten.
     code2 = code.reshape(code.shape[0] * chr_, cwr)
 
     def code_at(rs, ry, rx):
-        row = (rs - 1) * chr_ + (ry - 1)
-        cc = rx if full_width else rx - 1
-        row = jnp.clip(row, 0, code2.shape[0] - 1)
-        cc = jnp.clip(cc, 0, cwr - 1)
-        c = code2[row, cc].astype(jnp.int32)
-        return jax.lax.rem(c, 128)  # strip any candidate bit
+        row = jnp.clip((rs - 1) * chr_ + (ry - 1), 0, code2.shape[0] - 1)
+        cc = jnp.clip(rx - 1, 0, cwr - 1)
+        return code2[row, cc].astype(jnp.int32)
 
     # --- 5-step walk over the dense code field -------------------------
-    def step(carry, step_i, c0=None):
+    def step(carry, step_i):
         rs, ry, rx, valid, done = carry
-        c = code_at(rs, ry, rx) if c0 is None else c0
+        c = code_at(rs, ry, rx)
         sing = (c // _CODE_SING) % 2 == 1
         conv = (c // _CODE_CONV) % 2 == 1
         active = valid & jnp.logical_not(done)
@@ -442,14 +401,10 @@ def refine_candidates(dog: jax.Array, cand: Candidates, *, nb_scales: int,
         def run():
             carry = (cand.s[:kb], cand.y[:kb], cand.x[:kb],
                      jnp.ones((kb,), jnp.bool_), jnp.zeros((kb,), jnp.bool_))
-            # Unrolled (NB_REFINEMENT_STEPS is 5 and static): a lax.scan
-            # here pays TPU while-loop per-iteration overhead. Step 0 uses
-            # the candidate's own code when the frontend provides it
-            # (saves one latency-bound gather per walk).
+            # Unrolled (NB_REFINEMENT_STEPS is 5 and static): no loop
+            # control flow around the latency-bound gathers.
             for step_i in range(NB_REFINEMENT_STEPS):
-                c0 = (cand.code0[:kb] if step_i == 0
-                      and cand.code0 is not None else None)
-                carry, _ = step(carry, step_i, c0)
+                carry, _ = step(carry, step_i)
             rs, ry, rx, valid, _ = carry
 
             # Final Newton solve + acceptance tests at the stop cell.
@@ -517,195 +472,3 @@ def refine_candidates(dog: jax.Array, cand: Candidates, *, nb_scales: int,
         x=subpix_x * scale_factor,
         y=subpix_y * scale_factor,
     )
-
-
-# ---------------------------------------------------------------------------
-# Global (all-octaves) refinement
-# ---------------------------------------------------------------------------
-
-class GlobalRefined(NamedTuple):
-    """refine_candidates output concatenated over octaves, plus octave ids."""
-
-    refined: RefinedKeypoints  # all arrays at sum(caps)
-    oct_id: jax.Array          # i32[sum(caps)]
-
-
-def refine_candidates_global(dogs, cands, codes, *, nb_scales: int,
-                             oct_res, dog_threshold: float,
-                             edge_threshold: float, seed_sigma: float,
-                             upsampling: bool,
-                             octave_base: int = 0) -> GlobalRefined:
-    """One refinement walk for ALL octaves.
-
-    The per-octave walks are gather-latency bound on TPU (each of the
-    5 scan steps issues one gather per octave); concatenating the code
-    fields and DoG volumes into flat buffers with per-candidate base
-    offsets turns 5 x nb_octaves gathers into 5 gathers total.
-
-    Args:
-      dogs: per-octave (S+2, H, W) DoG stacks.
-      cands: per-octave Candidates (capacity caps[o]).
-      codes: per-octave walk-code fields — interior layout (S, H-2, W-2)
-        or the Pallas frontend's full-width layout (S, HR, WP); layouts may
-        be mixed across octaves.
-      octave_base: pyramid index of ``dogs[0]`` — nonzero when refining
-        only a tail of the pyramid (the hybrid split in pipeline.py:
-        big octaves walk per-octave, small octaves share one walk).
-    """
-    nb_oct = len(oct_res)
-
-    # --- row-concat the code fields and DoGs (2-D views) ----------------
-    # The former 1-D ``reshape(-1)`` flattens were full relayouts of
-    # every octave volume (~1.9 ms per big octave, round-5 trace; the
-    # 1536x1024 force-global arm measured +13 ms over the hybrid,
-    # results/hw_r5c/stagebench_1536_globalref.log). Lane-padding each
-    # octave to the widest width and concatenating the (S*H, W) 2-D
-    # views preserves layout (the reshape is a bitcast for 8-aligned
-    # row counts; the pads only copy the narrower octaves).
-    # Barrier: keep XLA from fusing the dense code computation into the
-    # walk chain (it would recompute the field every step).
-    wc_code = max(c.shape[2] for c in codes)
-    code_roff = []
-    code_rows = []
-    ro = 0
-    for c in codes:
-        code_roff.append(ro)
-        cpad = jnp.pad(c, ((0, 0), (0, 0), (0, wc_code - c.shape[2])))
-        code_rows.append(cpad.reshape(c.shape[0] * c.shape[1], wc_code))
-        ro += c.shape[0] * c.shape[1]
-    code2 = jax.lax.optimization_barrier(
-        jnp.concatenate(code_rows, axis=0))
-
-    wc_dog = max(d.shape[2] for d in dogs)
-    dog_roff = []
-    dog_rows = []
-    ro = 0
-    for d in dogs:
-        dog_roff.append(ro)
-        dpad = jnp.pad(d.astype(jnp.float32),
-                       ((0, 0), (0, 0), (0, wc_dog - d.shape[2])))
-        dog_rows.append(dpad.reshape(d.shape[0] * d.shape[1], wc_dog))
-        ro += d.shape[0] * d.shape[1]
-    dog2 = jnp.concatenate(dog_rows, axis=0)
-
-    # Per-octave geometry constants, materialized by segment CONCATENATION
-    # (free constants), never by ``table[oct_id]`` gathers — a (31k,) 1-D
-    # gather costs ~0.2 ms on v5e regardless of table size, and there are
-    # seven of these.
-    full_width = [codes[o].shape[-1] >= oct_res[o][0] for o in range(nb_oct)]
-
-    def seg(vals):
-        return jnp.concatenate(
-            [jnp.full((cands[o].s.shape[0],), int(vals[o]), jnp.int32)
-             for o in range(nb_oct)])
-
-    # --- global candidate arrays -----------------------------------------
-    oct_id = seg(list(range(nb_oct)))
-    s0 = jnp.concatenate([c.s for c in cands])
-    y0 = jnp.concatenate([c.y for c in cands])
-    x0 = jnp.concatenate([c.x for c in cands])
-    in_count = jnp.concatenate([jnp.arange(c.s.shape[0]) < c.count
-                                for c in cands])
-    k = s0.shape[0]
-
-    g_chr = seg([c.shape[1] for c in codes])
-    g_fw = seg([1 if f else 0 for f in full_width])
-    g_coff = seg(code_roff)
-    g_doff = seg(dog_roff)
-    g_w = seg([w for w, _ in oct_res])
-    g_h = seg([h for _, h in oct_res])
-    # Keep the segment tables as RUNTIME values: without the barrier XLA
-    # constant-folds every downstream index chain (g_coff + f(g_chr,
-    # g_cwr, ...) per unrolled walk step) into materialized s32[K, 1]
-    # constants whose tiled layout pads the minor dim to 128 lanes —
-    # 8 MB of embedded executable bytes PER table (15 of them = 126 MB of
-    # the 208 MB program at 640x480; /tmp/xdump round-5 analysis). The
-    # concats themselves stay 1-D (64 KB) and the arithmetic costs ~10
-    # VPU ops on K elements.
-    (g_chr, g_fw, g_coff, g_doff, g_w, g_h,
-     oct_id) = jax.lax.optimization_barrier(
-        (g_chr, g_fw, g_coff, g_doff, g_w, g_h, oct_id))
-
-    def code_at(rs, ry, rx):
-        rxs = jnp.where(g_fw == 1, rx, rx - 1)
-        row = g_coff + (rs - 1) * g_chr + (ry - 1)
-        c = code2[jnp.clip(row, 0, code2.shape[0] - 1),
-                  jnp.clip(rxs, 0, wc_code - 1)].astype(jnp.int32)
-        return jax.lax.rem(c, 128)
-
-    def step(carry, step_i, c0=None):
-        rs, ry, rx, valid, done = carry
-        c = code_at(rs, ry, rx) if c0 is None else c0
-        sing = (c // _CODE_SING) % 2 == 1
-        conv = (c // _CODE_CONV) % 2 == 1
-        active = valid & jnp.logical_not(done)
-        valid = jnp.where(active & sing, False, valid)
-        act2 = active & jnp.logical_not(sing)
-        done = jnp.where(act2 & conv, True, done)
-        may_move = act2 & jnp.logical_not(conv) & (
-            step_i < NB_REFINEMENT_STEPS - 1)
-        mm = may_move.astype(jnp.int32)
-        ms = c % 3 - 1
-        mx = (c // 3) % 3 - 1
-        my = (c // 9) % 3 - 1
-        # Clamped integer moves as clips (see refine_candidates.step).
-        rx = jnp.clip(rx + mx * mm, 1, g_w - 2)
-        ry = jnp.clip(ry + my * mm, 1, g_h - 2)
-        rs = jnp.clip(rs + ms * mm, 1, nb_scales)
-        return (rs, ry, rx, valid, done), None
-
-    # Step 0 skips its code gather when every octave's frontend provided
-    # the candidate's own code.
-    code0_g = (jnp.concatenate([c.code0 for c in cands])
-               if all(c.code0 is not None for c in cands) else None)
-    carry = (s0, y0, x0,
-             jnp.ones((k,), jnp.bool_), jnp.zeros((k,), jnp.bool_))
-    for step_i in range(NB_REFINEMENT_STEPS):  # unrolled; see above
-        carry, _ = step(carry, step_i, code0_g if step_i == 0 else None)
-    rs, ry, rx, valid, _ = carry
-
-    # --- final Newton solve + acceptance tests at the stop cell ----------
-    base_row = g_doff + rs * g_h + ry
-    nb = _gather_neighborhood_2d(dog2, base_row, g_h, rx)
-    off_s, off_x, off_y, g_s, g_x, g_y, singular = _newton_step(
-        *[nb[(a, b, c)] for a in (0, 1, 2) for b in (0, 1, 2)
-          for c in (0, 1, 2)])
-    valid &= jnp.logical_not(singular)
-
-    subpix_x = rx.astype(jnp.float32) + off_x
-    subpix_y = ry.astype(jnp.float32) + off_y
-    subpix_s = rs.astype(jnp.float32) + off_s
-
-    ctr = nb[(1, 1, 1)]
-    new_val = ctr + 0.5 * (g_x * off_x + g_y * off_y + g_s * off_s)
-
-    wf = g_w.astype(jnp.float32)
-    hf = g_h.astype(jnp.float32)
-    ok = valid
-    ok &= jnp.abs(new_val) > dog_threshold
-    ok &= ((jnp.abs(off_x) < 1.5) & (jnp.abs(off_y) < 1.5)
-           & (jnp.abs(off_s) < 1.5))
-    ok &= (subpix_x >= 0) & (subpix_x < wf)
-    ok &= (subpix_y >= 0) & (subpix_y < hf)
-    ok &= (subpix_s >= 0) & (subpix_s <= nb_scales + 1)
-
-    h11 = nb[(1, 1, 2)] + nb[(1, 1, 0)] - 2.0 * ctr
-    h22 = nb[(1, 2, 1)] + nb[(1, 0, 1)] - 2.0 * ctr
-    h12 = 0.25 * (nb[(1, 2, 2)] - nb[(1, 0, 2)] - nb[(1, 2, 0)]
-                  + nb[(1, 0, 0)])
-    det2 = h11 * h22 - h12 * h12
-    edgeness = jnp.where(det2 == 0.0, jnp.inf,
-                         (h11 + h22) ** 2 / jnp.where(det2 == 0.0, 1.0, det2))
-    e = edge_threshold
-    ok &= (edgeness < ((e + 1.0) ** 2 / e)) & (edgeness >= 0)
-    ok &= in_count
-
-    octave_idx = octave_base + oct_id - (1 if upsampling else 0)
-    scale_factor = jnp.exp2(octave_idx.astype(jnp.float32))
-    sigma = seed_sigma * jnp.exp2(subpix_s / nb_scales) * scale_factor
-    refined = RefinedKeypoints(
-        valid=ok, scale_x=subpix_x, scale_y=subpix_y, subpix_s=subpix_s,
-        scale_idx=jnp.round(subpix_s).astype(jnp.int32),
-        sigma=sigma, intensity=new_val,
-        x=subpix_x * scale_factor, y=subpix_y * scale_factor)
-    return GlobalRefined(refined=refined, oct_id=oct_id)

@@ -14,7 +14,7 @@ Implements the same incremental-blur math as the reference's
 
 The reference's hardware-bilinear "interpolated kernel" packing
 (sift_detector.c:122-135) halves GPU texture fetches; it is mathematically a
-re-expression of the same convolution, so on TPU we always convolve with the
+re-expression of the same convolution, so we always convolve with the
 plain symmetric taps.
 
 These are Python-time (static) computations: kernels depend only on config,

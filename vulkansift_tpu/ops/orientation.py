@@ -117,8 +117,9 @@ def _smooth_shift_matrix() -> "np.ndarray":
     """(36, 108) matrix computing [smoothed, prev, next] in one matmul.
 
     The 6x circular [1,1,1]/3 smoothing is a fixed circulant linear map;
-    12 lane-axis jnp.rolls on (capacity, 36) lower to slice+pad chains
-    (~1.2 ms at 32k rows on v5e) while one (36, 108) MXU matmul is ~free.
+    One (36, 108) matmul yields the smoothed histogram and both of its
+    circular neighbours, in place of 12 jnp.roll slice+pad chains on
+    (capacity, 36).
     """
     import numpy as np
     n = NB_ORI_HIST_BINS
@@ -156,9 +157,8 @@ def peaks_from_histograms(hist: jax.Array, capacity: int) -> Orientations:
     # Keep the top-`capacity` peaks by histogram value (strongest first).
     peak_vals = jnp.where(is_peak, hist, -jnp.inf)
     top_vals, top_idx = jax.lax.top_k(peak_vals, capacity)
-    # One-hot contraction instead of take_along_axis: the lane-dim gather
-    # lowers to a ~1 ms kCustom gather at 32k rows on v5e; the dense
-    # compare+multiply+reduce over 36 bins is ~free.
+    # One-hot contraction instead of take_along_axis: a dense
+    # compare+select+reduce over 36 bins in place of a per-row gather.
     onehot = (top_idx[:, :, None]
               == jnp.arange(nb, dtype=top_idx.dtype)[None, None, :])
     angles = jnp.sum(jnp.where(onehot, angles_all[:, None, :], 0.0),

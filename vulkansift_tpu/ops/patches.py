@@ -4,7 +4,7 @@ The reference's orientation/descriptor shaders sample sigma-dependent,
 rotated pixel neighborhoods directly from the octave's gaussian image with a
 workgroup per keypoint (shaders/ComputeOrientation.comp:84-99,
 shaders/ComputeDescriptors.comp:131-143). Data-dependent window sizes are
-hostile to XLA, so the TPU design gathers ONE static square patch per
+hostile to XLA, so this design gathers ONE static square patch per
 keypoint — sized for the worst-case descriptor radius — and both the
 orientation and descriptor kernels read from it with masking:
 

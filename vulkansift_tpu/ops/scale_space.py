@@ -4,7 +4,7 @@ Replaces the reference's GaussianBlur/GaussianBlurInterpolated/
 DifferenceOfGaussian compute shaders and the blit-based octave seeding
 (reference: src/vulkansift/shaders/GaussianBlur.comp,
 shaders/DifferenceOfGaussian.comp, and the command recording in
-src/vulkansift/sift_detector.c:893-1037) with a TPU-first formulation:
+src/vulkansift/sift_detector.c:893-1037) with a dense array formulation:
 
 * each octave is a single ``(nb_scales+3, H, W)`` array — the analogue of the
   reference's image arrays with one layer per scale;
@@ -38,7 +38,6 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..config import PyramidPrecision, SiftConfig
-from ..utils.backend import is_tpu_backend
 from . import gaussian
 
 
@@ -70,92 +69,10 @@ def _conv1d_symmetric(x: jax.Array, taps: np.ndarray, axis: int) -> jax.Array:
     return acc.astype(out_dtype)
 
 
-# Vertical blur via banded MXU matmul for octaves at least this tall
-# (v5e: 4.55 vs 7.38 ms per H+V 19-tap blur at 6912x4608,
-# results/hw_r5a/pyrbench2r.log). Below it the tile stack/transpose
-# overheads beat the VPU saving.
-_VBLUR_MATMUL_MIN_H = 1024
-_VBLUR_TILE = 256
-# Horizontal blur via lane-tiled banded MXU matmul for octaves at least
-# this wide (v5e: H+V all-MXU 4.43 vs 4.81 ms with the VPU H-pass at
-# 6912x4608, results/hw_r5a/pyrbench3.log). Narrower widths are
-# unmeasured, so the bar sits at the measured regime.
-_HBLUR_MATMUL_MIN_W = 6144
-_HBLUR_TILE = 512
-
-
-def _hconv_matmul(x: jax.Array, taps: np.ndarray) -> jax.Array:
-    """Horizontal symmetric conv of (H, W) as one shared-selector banded
-    matmul over overlapping 128-haloed lane tiles: out cols [t*T, (t+1)*T)
-    = x cols [t*T - 128, (t+1)*T + 128) @ B (T+256, T). The 128 halo keeps
-    every tile slice lane-aligned (any k <= 128); HIGHEST precision keeps
-    the result within f32-reassociation distance of the VPU shift-MAC
-    pass (max abs diff 2.4e-7 on N(0,1) data)."""
-    k = len(taps) - 1
-    full = np.concatenate([taps[:0:-1], taps]).astype(np.float32)
-    t_cols = _HBLUR_TILE
-    h, w = x.shape
-    nt = -(-w // t_cols)
-    xp = jnp.pad(x, ((0, 0), (128, nt * t_cols + 128 - w)),
-                 mode="symmetric")
-    tiles = jnp.stack([
-        jax.lax.dynamic_slice_in_dim(xp, t * t_cols, t_cols + 256, 1)
-        for t in range(nt)])                       # (nt, H, T+256)
-    b = np.zeros((t_cols + 256, t_cols), np.float32)
-    for o in range(t_cols):
-        b[o + 128 - k:o + 128 + k + 1, o] = full
-    out = jax.lax.dot_general(
-        tiles, jnp.asarray(b), (((2,), (0,)), ((), ())),
-        precision=jax.lax.Precision.HIGHEST)       # (nt, H, T)
-    return out.transpose(1, 0, 2).reshape(h, nt * t_cols)[:, :w]
-
-
-def _vconv_matmul(x: jax.Array, taps: np.ndarray) -> jax.Array:
-    """Vertical symmetric conv of (H, W) as one shared-selector banded
-    matmul over overlapping row tiles: out rows [t*T, (t+1)*T) =
-    B (T, T+2k) @ x rows [t*T - k, (t+1)*T + k). The VPU shift-MAC chain
-    costs ~4k ops/element while the MXU is idle; HIGHEST precision keeps
-    the result within f32-reassociation distance of the VPU pass (max
-    abs diff 2.4e-7 on N(0,1) data)."""
-    k = len(taps) - 1
-    full = np.concatenate([taps[:0:-1], taps]).astype(np.float32)
-    t_rows = _VBLUR_TILE
-    hp = x.shape[0]
-    nt = -(-hp // t_rows)
-    xp = jnp.pad(x, ((k, nt * t_rows + k - hp), (0, 0)), mode="symmetric")
-    tiles = jnp.stack([
-        jax.lax.dynamic_slice_in_dim(xp, t * t_rows, t_rows + 2 * k, 0)
-        for t in range(nt)])                       # (nt, T+2k, W)
-    b = np.zeros((t_rows, t_rows + 2 * k), np.float32)
-    for o in range(t_rows):
-        b[o, o:o + 2 * k + 1] = full
-    out = jax.lax.dot_general(
-        jnp.asarray(b), tiles, (((1,), (1,)), ((), ())),
-        precision=jax.lax.Precision.HIGHEST)       # (T, nt, W)
-    return out.transpose(1, 0, 2).reshape(nt * t_rows, -1)[:hp]
-
-
 def blur_separable(img: jax.Array, taps: np.ndarray) -> jax.Array:
     """Separable gaussian blur of (..., H, W) with a half-kernel."""
-    import os
-    # The banded-MXU H/V conv formulations win ISOLATED layer A/Bs
-    # (results/hw_r5a/pyrbench2r.log, pyrbench3.log) but LOSE inside the
-    # full pipeline, where the blur otherwise fuses into the in-place
-    # octave-stack writes: pyramid 27.3 vs 22.4 ms at 3456x2304 and 2.74
-    # vs 2.07 at 1536x1024 (results/hw_r5b/stagebench_*). Opt-in only,
-    # kept for re-evaluation on other TPU generations.
-    mxu_ok = (img.ndim == 2 and len(taps) > 1 and len(taps) <= 129
-              and is_tpu_backend())
-    if (mxu_ok and img.shape[1] >= _HBLUR_MATMUL_MIN_W
-            and os.environ.get("VKSIFT_HBLUR_MATMUL") == "1"):
-        img = _hconv_matmul(img.astype(jnp.float32), taps)
-    else:
-        img = _conv1d_symmetric(img, taps, axis=img.ndim - 1)  # horizontal
-    if (mxu_ok and img.shape[0] >= _VBLUR_MATMUL_MIN_H
-            and os.environ.get("VKSIFT_VBLUR_MATMUL") == "1"):
-        return _vconv_matmul(img.astype(jnp.float32), taps).astype(img.dtype)
-    img = _conv1d_symmetric(img, taps, axis=img.ndim - 2)  # vertical
-    return img
+    img = _conv1d_symmetric(img, taps, axis=img.ndim - 1)  # horizontal
+    return _conv1d_symmetric(img, taps, axis=img.ndim - 2)  # vertical
 
 
 def upsample2x_linear(img: jax.Array) -> jax.Array:
@@ -165,13 +82,6 @@ def upsample2x_linear(img: jax.Array) -> jax.Array:
     dst[2k]   = 0.25*src[k-1] + 0.75*src[k]
     dst[2k+1] = 0.75*src[k]   + 0.25*src[k+1]
     applied separably to rows then columns.
-
-    TPU note: interleaving along the minor (lane) axis via stack+reshape
-    is the relayout-dual of the stride-2 slice (measured 17.5 ms at
-    3072x2048); the lane axis instead rides the MXU with an interleave
-    matmul ``[even | odd] @ [E; O]`` where E/O scatter column k to output
-    columns 2k/2k+1 (exact: single-term dot products). The sublane (row)
-    axis interleaves natively, which is cheap.
     """
 
     def up1d_parts(x: jax.Array, axis: int):
@@ -189,32 +99,6 @@ def upsample2x_linear(img: jax.Array) -> jax.Array:
     def up1d(x: jax.Array, axis: int) -> jax.Array:
         n = x.shape[axis]
         even, odd = up1d_parts(x, axis)
-        if (axis == x.ndim - 1 and is_tpu_backend()
-                and n >= 256 and n % 128 == 0):
-            # Lane interleave as BLOCK-DIAGONAL one-hot matmuls: output
-            # columns [2c, 2c+2T) depend only on even/odd columns
-            # [c, c+T), so a (2T, 2T) selector per tile does the same
-            # permutation as the former dense (2n, 2n) matmul at T/n of
-            # the FLOPs — the dense form cost ~440 GFLOP (several ms) at
-            # 3456x2304 where n is 3456. Default (bf16x3) precision is
-            # EXACT here: each selector column has a single unit entry,
-            # and the bf16x3 operand split reconstructs f32 values
-            # exactly under multiply-by-one.
-            t = 256 if n % 256 == 0 else 128
-            sel = jnp.zeros((2 * t, 2 * t), jnp.float32)
-            sel = sel.at[jnp.arange(t), jnp.arange(0, 2 * t, 2)].set(1)
-            sel = sel.at[t + jnp.arange(t), jnp.arange(1, 2 * t, 2)].set(1)
-            tiles = []
-            for c in range(0, n, t):
-                eo = jnp.concatenate(
-                    [jax.lax.slice_in_dim(even, c, c + t, axis=axis),
-                     jax.lax.slice_in_dim(odd, c, c + t, axis=axis)],
-                    axis=-1)                                   # (.., 2T)
-                tiles.append(jax.lax.dot_general(
-                    eo.astype(jnp.float32), sel,
-                    (((eo.ndim - 1,), (0,)), ((), ())),
-                    preferred_element_type=jnp.float32))
-            return jnp.concatenate(tiles, axis=-1).astype(x.dtype)
         stacked = jnp.stack([even, odd], axis=axis + 1)
         new_shape = list(x.shape)
         new_shape[axis] = 2 * n
@@ -229,26 +113,8 @@ def downsample2x_nearest(img: jax.Array, out_h: int, out_w: int) -> jax.Array:
     """2x nearest downsample matching vkCmdBlitImage(VK_FILTER_NEAREST):
     with half-pixel centers dst texel x samples src texel 2x+1
     (sift_detector.c:1003-1024).
-
-    TPU note: a stride-2 slice along the minor (lane) axis is a very
-    expensive relayout (~17 ms at 3072x2048); selecting the odd columns
-    with a one-hot matmul instead rides the MXU (~6x faster). Default
-    (bf16x3) precision is EXACT here — each selector column has a single
-    unit entry, and the bf16x3 operand split reconstructs f32 values
-    exactly under multiply-by-one (same argument as the upsample
-    interleave; the former HIGHEST-precision form cost 3.7 ms/frame at
-    3456x2304, ~3x the default-precision MXU rate). Rows use a plain
-    (cheap) sublane stride.
     """
     rows = img[..., 1::2, :][..., :out_h, :]
-    w = img.shape[-1]
-    if is_tpu_backend() and w >= 256:
-        sel = jnp.zeros((w, out_w), img.dtype).at[
-            jnp.arange(1, 2 * out_w, 2), jnp.arange(out_w)].set(1)
-        return jax.lax.dot_general(
-            rows.astype(jnp.float32), sel.astype(jnp.float32),
-            (((rows.ndim - 1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32).astype(img.dtype)
     return rows[..., 1::2][..., :out_w]
 
 
@@ -260,7 +126,6 @@ def build_pyramid(
     image: jax.Array,
     config: SiftConfig,
     octave_shapes: Sequence[Tuple[int, int]],
-    atlas_bands=None,
 ) -> Tuple[Tuple[jax.Array, ...], Tuple[jax.Array, ...]]:
     """Construct the full gaussian + DoG pyramids.
 
@@ -273,16 +138,6 @@ def build_pyramid(
       (gaussians, dogs): tuples over octaves; gaussians[o] has shape
       (nb_scales+3, H_o, W_o), dogs[o] has (nb_scales+2, H_o, W_o); dtype per
       config.pyramid_precision.
-
-      With ``atlas_bands=(band_off, h_atlas, w_atlas)`` (see
-      pallas_backhalf.atlas_plan) the first element is instead ONE
-      (nb_scales+2, h_atlas, w_atlas) f32 ATLAS: each gaussian layer is
-      written straight into its octave band, so the blur output fuses
-      into the atlas write and the per-octave gaussian stacks are never
-      materialized (they cost ~7 ms of stack copies + ~15 ms of atlas
-      re-copies per frame at 3456x2304, round-5 trace). fp16 pyramid
-      precision quantize-dequantizes each layer before the write (same
-      stored values the per-octave path would hand the back half).
     """
     s = config.nb_scales_per_octave
     # FLOAT16 = IEEE fp16 STORAGE (reference parity, sift_memory.c:139);
@@ -294,131 +149,37 @@ def build_pyramid(
     # fp16-rounded layers back into the cascade puts gaussian-scale
     # (~0.5) rounding error (~2.4e-4 absolute) onto DoG values that are
     # only ~0.01 — a 2-3% relative error that collapses the strict
-    # 26-neighbor extremum comparisons and cost 37% of keypoints
-    # (results/recall_parity.txt, round 3). Quantizing the finished DoG
-    # instead introduces error at the DoG's own scale (fp16 is
-    # floating — ~0.05% here), which the recall metrics don't see.
+    # 26-neighbor extremum comparisons and cost 37% of keypoints.
+    # Quantizing the finished DoG instead introduces error at the DoG's
+    # own scale (fp16 is floating — ~0.05% here), which the recall
+    # metrics don't see.
     dtype = (jnp.float16 if config.pyramid_precision == PyramidPrecision.FLOAT16
              else jnp.float32)
     kernels = [gaussian.half_kernel(sig) for sig in gaussian.kernel_sigmas(config)]
 
-    # Fused Pallas blur+DoG on TPU for f32 octaves that satisfy its tiling
-    # (ops/pallas_blur.eligible); identical float semantics, ~5x fewer
-    # executed ops and ~2x less HBM traffic than the XLA pad/slice chain.
-    from . import pallas_blur
-
-    def _use_kernel(h, w):
-        import os
-        # Size-gated default (round-5 v5e A/B, double-buffered kernel):
-        # at 3456x2304 the kernel pyramid is 18.85 ms vs 27.5 XLA
-        # (results/hw_r5d/stagebench_3456_blurk.log — octaves 0+1, i.e.
-        # areas >= 7.9M px, took the kernel) while at 1536x1024 the XLA
-        # pad/slice chain still wins (2.03 vs 3.71 ms, areas <= 6.3M).
-        # VKSIFT_BLUR_KERNEL=1 forces all eligible octaves, =0 forces
-        # off.
-        force = os.environ.get("VKSIFT_BLUR_KERNEL")
-        if force == "0":
-            return False
-        if force != "1" and h * w < 7_000_000:
-            return False
-        return is_tpu_backend() and pallas_blur.eligible(h, w, dtype)
-
-    def _blur(x, taps_np, with_dog):
-        # x is always f32 here (see dtype note above).
-        if _use_kernel(*x.shape):
-            return pallas_blur.blur_dog_tpu(
-                x, tuple(float(t) for t in taps_np), with_dog=with_dog)
-        y = blur_separable(x, taps_np)
-        return y, ((y - x) if with_dog else None)
-
     gaussians: List[jax.Array] = []
     dogs: List[jax.Array] = []
-    atlas = None
-    if atlas_bands is not None:
-        band_off, h_atlas, w_atlas = atlas_bands
-        atlas = jnp.zeros((s + 2, h_atlas, w_atlas), jnp.float32)
-
-        def store(v):
-            # Storage-precision round trip (fp16 mode): the back half
-            # must read the same values the stored pyramid would hold.
-            return v.astype(dtype).astype(jnp.float32)
 
     # Octave 0 seed: (optionally upsampled) input blurred to seed sigma.
     seed = upsample2x_linear(image) if config.use_input_upsampling else image
-    base, _ = _blur(seed.astype(jnp.float32), kernels[0], with_dog=False)
+    base = blur_separable(seed.astype(jnp.float32), kernels[0])
 
-    # Layers are written straight into preallocated per-octave stacks with
-    # dynamic-update-slices and read back for the next blur, so each layer
-    # has ONE consumer chain and XLA fuses the blur compute into the
-    # in-place stack write. The previous jnp.stack(...) formulation
-    # materialized every layer standalone AND re-copied it into the stack
-    # (~10 ms/frame of pure copies at 3456x2304, round-5 trace).
-    # Default = stacked standalone layers: the round-4 in-place DUS
-    # formulation measured WORSE on hardware once cleanly A/B'd (full
-    # detect 139.1 vs 122.1 ms at 3456x2304, pyramid 2.25 vs 2.09 at
-    # 1536x1024 — results/hw_r5c/stagebench_3456_noinplace.log vs
-    # _default.log, hw_r4d). VKSIFT_PYR_INPLACE=1 re-enables it.
-    import os as _os2
-    inplace = _os2.environ.get("VKSIFT_PYR_INPLACE", "0") == "1"
     for o, (h, w) in enumerate(octave_shapes):
         if o > 0:
             base = downsample2x_nearest(base_top, h, w)
-        if atlas is not None:
-            # Atlas-direct: DUS each layer into its octave band (layers
-            # 0..s+1 — the top layer s+2 only feeds the last DoG).
-            dlayers = []
-            prev = base
-            atlas = jax.lax.dynamic_update_slice(
-                atlas, store(base)[None], (0, band_off[o], 0))
-            for i in range(1, s + 3):
-                y, dg = _blur(prev, kernels[i], with_dog=True)
-                dlayers.append(dg)
-                prev = y
-                if i == s:
-                    base_top = y
-                if i <= s + 1:
-                    atlas = jax.lax.dynamic_update_slice(
-                        atlas, store(y)[None], (i, band_off[o], 0))
-            ds = jnp.stack(dlayers)
-        elif inplace:
-            gs = jnp.zeros((s + 3, h, w), jnp.float32)
-            ds = jnp.zeros((s + 2, h, w), jnp.float32)
-            gs = jax.lax.dynamic_update_slice(gs, base[None], (0, 0, 0))
-            prev = base
-            base_top = None
-            for i in range(1, s + 3):
-                y, dg = _blur(prev, kernels[i], with_dog=True)
-                gs = jax.lax.dynamic_update_slice(gs, y[None], (i, 0, 0))
-                ds = jax.lax.dynamic_update_slice(ds, dg[None],
-                                                  (i - 1, 0, 0))
-                # Read the layer back from the stack (a fusable strided
-                # read) instead of keeping the standalone blur output
-                # alive — the standalone tensor would force a second
-                # materialization.
-                prev = jax.lax.dynamic_slice(gs, (i, 0, 0), (1, h, w))[0]
-                if i == s:
-                    base_top = prev  # f32 seed for the next octave
-        else:
-            # A/B fallback (VKSIFT_PYR_INPLACE=0): standalone layers +
-            # jnp.stack, the pre-b28f250 formulation.
-            layers = [base]
-            dlayers = []
-            prev = base
-            for i in range(1, s + 3):
-                y, dg = _blur(prev, kernels[i], with_dog=True)
-                layers.append(y)
-                dlayers.append(dg)
-                prev = y
-                if i == s:
-                    base_top = y
-            gs = jnp.stack(layers)
-            ds = jnp.stack(dlayers)
-        if atlas is None:
-            gaussians.append(gs.astype(dtype))
-        dogs.append(ds.astype(dtype))
+        layers = [base]
+        dlayers = []
+        prev = base
+        for i in range(1, s + 3):
+            y = blur_separable(prev, kernels[i])
+            layers.append(y)
+            dlayers.append(y - prev)
+            prev = y
+            if i == s:
+                base_top = y  # f32 seed for the next octave
+        gaussians.append(jnp.stack(layers).astype(dtype))
+        dogs.append(jnp.stack(dlayers).astype(dtype))
 
-    if atlas is not None:
-        return atlas, tuple(dogs)
     return tuple(gaussians), tuple(dogs)
 
 

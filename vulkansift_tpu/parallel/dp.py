@@ -20,22 +20,18 @@ from ..pipeline import make_detect_fn
 
 
 def make_dp_detect_fn(config: SiftConfig, width: int, height: int,
-                      mesh: Mesh, axis_name: str = "data",
-                      backhalf: str = "auto"):
+                      mesh: Mesh, axis_name: str = "data"):
     """Build a jitted data-parallel batched detect over ``mesh``.
 
     Returned ``fn(images u8[B, H, W]) -> DetectOutput`` with leading batch
     dim on every output leaf; B must be divisible by the mesh axis size.
     """
-    detect = make_detect_fn(config, width, height, backhalf=backhalf)
+    detect = make_detect_fn(config, width, height)
 
     def local_fn(images):
-        # lax.map of the FULL single-image program, NOT vmap: the chip runs
-        # one image at a time either way, and vmapping forfeits the Pallas
-        # kernels (dynamic-grid frontend can't be vmapped; vmapped back-half
-        # grids run at worst-case size) — measured 2.3x slower per frame
-        # (see pipeline.make_detect_batched). Each device scans its local
-        # sub-batch with the same per-frame cost as the single-image path.
+        # lax.map of the full single-image program: each device scans its
+        # local sub-batch with the same per-frame work as the single-image
+        # path (see pipeline.make_detect_batched).
         return jax.lax.map(detect, images)
 
     sharded = shard_map(

@@ -1,12 +1,13 @@
-"""Device mesh setup — the TPU-native replacement for the reference's
-device manager (reference: vkenv/vulkan_device.c — instance creation, GPU
-scoring/selection, queue discovery). On TPU the runtime is PJRT; this module
-only names devices into a mesh and initializes the multi-host runtime.
+"""Device mesh setup — the replacement for the reference's device manager
+(reference: vkenv/vulkan_device.c — instance creation, GPU scoring/selection,
+queue discovery). The runtime is PJRT; this module only names devices into a
+mesh and initializes the multi-host runtime.
 
 The reference is single-GPU; everything here is NEW design surface
 (SURVEY.md §2.5): data parallelism over images rides the ``"data"`` axis,
-sharded pairwise matching rides the same axis as a ``ppermute`` ring over
-ICI (:mod:`.ring_match`).
+sharded pairwise matching rides the same axis as a ``ppermute`` ring
+(:mod:`.ring_match`). A 1-D mesh fits GPUs joined all to all by NVLink,
+where every device reaches every other at the same rate.
 """
 
 from __future__ import annotations

@@ -2,18 +2,18 @@
 
 The reference's matcher is a single-GPU O(N_A * N_B * 128) scan
 (shaders/Get2NearestNeighbors.comp). When feature sets (or batches of pairs)
-exceed one chip, the distance computation shards ring-attention-style
+exceed one device, the distance computation shards ring-attention-style
 (SURVEY.md §5.7): A-descriptors stay resident (sharded over the mesh axis),
-B-descriptor shards stream around the ICI ring via ``jax.lax.ppermute``, and
-each device folds every visiting B shard into a running per-row top-2. The
-N_A x N_B distance matrix is never materialized, per-step compute is one
-MXU matmul of the local shards, and each ring step's collective moves only
-``NB/n * 132`` bytes per link.
+B-descriptor shards stream around a ring via ``jax.lax.ppermute`` (NCCL
+over NVLink on a multi-GPU host), and each device folds every visiting B
+shard into a running per-row top-2. The N_A x N_B distance matrix is never
+materialized, per-step compute is one bf16 matmul of the local shards, and
+each ring step's collective moves only ``NB/n * 132`` bytes per link.
 
 The top-2 merge uses (distance, index) lexicographic ordering
 (:func:`vulkansift_tpu.ops.match._merge_top2`), which is associative and
-commutative — results are bit-identical to the single-chip matcher no matter
-the shard visit order.
+commutative — results are bit-identical to the single-device matcher no
+matter the shard visit order.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
-from ..ops.match import _merge_top2, _top2_of_tile
+from ..ops.match import _merge_top2, _top2_of_tile, exact_sqrt
 from ..types import Matches2NN
 
 # Plain Python float, NOT jnp.float32(...): a module-level device
@@ -88,8 +88,7 @@ def make_ring_match_fn(mesh: Mesh, axis_name: str = "data"):
         (top2, _, _), _ = jax.lax.scan(
             step, (init_top2, b16, b_sq), jnp.arange(n, dtype=jnp.int32))
         d1, i1, d2_, i2 = top2
-        d1 = jnp.sqrt(jnp.maximum(d1, 0.0))
-        d2_ = jnp.sqrt(jnp.maximum(d2_, 0.0))
+        d1, d2_ = exact_sqrt(d1), exact_sqrt(d2_)
         row0 = my * na_l
         idx_a = row0 + jnp.arange(na_l, dtype=jnp.int32)
         return idx_a, i1, i2, d1, d2_

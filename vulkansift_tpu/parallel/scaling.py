@@ -1,5 +1,5 @@
-"""Multi-chip scaling-efficiency measurement (BASELINE north star: >=80%
-frames/s scaling efficiency at 4 hosts).
+"""Multi-device scaling-efficiency measurement (BASELINE north star: >=80%
+frames/s scaling efficiency at 4 devices).
 
 Measures data-parallel batched-detect throughput over 1..N-device meshes
 and reports frames/s + two efficiency views:
@@ -11,12 +11,11 @@ and reports frames/s + two efficiency views:
   program relative to the unsharded one when all "devices" serialize onto
   the same silicon (a 1-core host). 1.0 means sharding adds no work and
   no collective/glue overhead; the forward DP path has no collectives
-  (parallel/dp.py), so on real pods wall-clock efficiency is then bounded
-  only by host I/O and per-chip dispatch.
+  (parallel/dp.py), so on real devices wall-clock efficiency is then
+  bounded only by host I/O and per-device dispatch.
 
-The dev host here has ONE physical core, so virtual-mesh wall-clock
-``efficiency`` mostly measures core time-slicing; ``work_efficiency`` is
-the recordable evidence (see results/scaling_efficiency.json).
+On a virtual CPU mesh wall-clock ``efficiency`` mostly measures core
+time-slicing; neither view is a device metric there.
 CLI: ``python -m vulkansift_tpu.parallel.scaling``.
 """
 
@@ -35,13 +34,13 @@ import jax.numpy as jnp
 from ..config import SiftConfig
 from .dp import make_dp_detect_fn, shard_batch
 from .mesh import make_mesh
+from ..utils.compile_cache import enable_compile_cache
 
 
 def measure_dp_scaling(config: SiftConfig, width: int, height: int, *,
                        per_device_batch: int = 2,
                        device_counts: Optional[List[int]] = None,
                        iters: int = 5,
-                       backhalf: str = "auto",
                        seed: int = 0) -> Dict:
     """Throughput of data-parallel batched detect at several mesh sizes.
 
@@ -59,8 +58,7 @@ def measure_dp_scaling(config: SiftConfig, width: int, height: int, *,
         mesh = make_mesh(n)
         batch = per_device_batch * n
         images = rng.integers(0, 256, (batch, height, width), np.uint8)
-        fn = make_dp_detect_fn(config, width, height, mesh,
-                               backhalf=backhalf)
+        fn = make_dp_detect_fn(config, width, height, mesh)
         dev_images = shard_batch(images, mesh)
         out = fn(dev_images)
         jax.device_get(out.features.count)  # compile+sync
@@ -92,6 +90,7 @@ def main(argv=None):  # pragma: no cover - CLI
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--max-features", type=int, default=8192)
     args = ap.parse_args(argv)
+    enable_compile_cache()
     cfg = SiftConfig(use_input_upsampling=False,
                      max_nb_sift_per_buffer=args.max_features,
                      sift_buffer_count=1,

@@ -8,6 +8,7 @@ import argparse
 import sys
 
 from .harness import DETECTORS, run_matching_benchmark
+from ..utils.compile_cache import enable_compile_cache
 
 
 def main(argv=None):
@@ -18,6 +19,7 @@ def main(argv=None):
                     help="use synthesized homography pairs (no dataset)")
     ap.add_argument("--out-dir", default=".")
     args = ap.parse_args(argv)
+    enable_compile_cache()
 
     if args.detector is None:
         detector_name, dataset = args.dataset_or_detector, None

@@ -34,6 +34,7 @@ import numpy as np
 from .harness import (DetectResult, Detector, LOWES_RATIO,
                       OpenCvDetector, PIXEL_DIST_THRESHOLD, _project,
                       lowe_matches)
+from ..utils.compile_cache import enable_compile_cache
 
 
 # ---------------------------------------------------------------------------
@@ -244,7 +245,7 @@ def run_parity(out_dir: str = ".", quick: bool = False,
     cv_det = OpenCvDetector()
     cv_det.init()
 
-    def tpu_detector(mode: str):
+    def jax_detector(mode: str):
         parts = mode.split("_")
         fmt, precision = parts[0], parts[1]
         noremap = "noremap" in parts[2:]
@@ -286,7 +287,7 @@ def run_parity(out_dir: str = ".", quick: bool = False,
         fh.flush()
 
     # OpenCV baseline over all pairs (CPU, fast; never budget-gated so
-    # every TPU prefix has a same-length baseline prefix to compare to).
+    # every device prefix has a same-length baseline prefix to compare to).
     cv_cache: Dict[int, DetectResult] = {}
     cv_rows: List[Tuple[int, int, int]] = []
     for (tname, tag, img1, img2, hmat) in pairs:
@@ -310,7 +311,7 @@ def run_parity(out_dir: str = ".", quick: bool = False,
         det = None
         done = 0
         try:
-            det, noremap = tpu_detector(mode)
+            det, noremap = jax_detector(mode)
             if noremap:
                 _os_mod.environ["VKSIFT_NO_SIGMA_REMAP"] = "1"
             tot = np.zeros(3, np.int64)
@@ -374,6 +375,7 @@ def main(argv=None):
                          "ubc_f32,ubc_fp16,ubc_f32_noremap")
     ap.add_argument("--out-name", default="recall_parity.txt")
     args = ap.parse_args(argv)
+    enable_compile_cache()
     modes = tuple(args.modes.split(",")) if args.modes else None
     summary = run_parity(out_dir=args.out_dir, quick=args.quick,
                          modes=modes, budget_s=args.budget,

@@ -11,6 +11,7 @@ import numpy as np
 
 from .harness import DETECTORS, NB_ITER_MEAS, NB_ITER_WARMUP, \
     run_runtime_benchmark
+from ..utils.compile_cache import enable_compile_cache
 
 
 def main(argv=None):
@@ -21,6 +22,7 @@ def main(argv=None):
     ap.add_argument("--iters", type=int, default=NB_ITER_MEAS)
     ap.add_argument("--out-dir", default=".")
     args = ap.parse_args(argv)
+    enable_compile_cache()
 
     import cv2
     image = cv2.imread(args.image, 0)

@@ -1,4 +1,4 @@
-"""Monolithic fully-jitted detection pipeline (the TPU-first hot path).
+"""Monolithic fully-jitted detection pipeline (the performance path).
 
 The staged :class:`~vulkansift_tpu.detector.SiftDetector` mirrors the
 reference's host-visible structure (counts readable between stages, like the
@@ -17,76 +17,29 @@ and invalid lanes are masked. Features beyond capacity are dropped and
 counted (``lost`` output), matching the reference's clamping + "features
 lost" accounting (sift_memory.c:1088-1102).
 
-Two back-half (orientation+descriptor) implementations:
-
-* ``backhalf="xla"`` — pure-XLA patch gather + masked reductions +
-  hat-product einsum (:mod:`.ops.orientation`, :mod:`.ops.descriptor`).
-  Runs anywhere; compute scales with per-octave *capacity*.
-* ``backhalf="pallas"`` — fused TPU kernel
-  (:mod:`.ops.pallas_backhalf`): one window DMA per keypoint, grid steps
-  self-skip beyond the live count, so compute scales with the *actual*
-  keypoint count like the reference's indirect dispatch. Small octaves are
-  handled in-kernel: the atlas is padded to at least one full kernel
-  window and per-keypoint band bounds mask out-of-band rows.
-* ``backhalf="auto"`` (default) — pallas on TPU backends, xla elsewhere.
+The back half (orientation + descriptor) is a patch gather + masked
+reductions + hat-product einsum (:mod:`.ops.orientation`,
+:mod:`.ops.descriptor`); its compute scales with per-octave *capacity*.
 
 Batch/data parallelism: :func:`make_detect_fn` returns a pure function, so
-``jax.vmap`` gives batched multi-image detect and ``shard_map`` over a mesh
-axis gives multi-chip data parallelism (see :mod:`vulkansift_tpu.parallel`).
+``jax.lax.map``/``jax.vmap`` give batched multi-image detect and
+``shard_map`` over a mesh axis gives multi-device data parallelism (see
+:mod:`vulkansift_tpu.parallel`).
 """
 
 from __future__ import annotations
 
-import functools
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import NamedTuple, Tuple
 
 import jax
 import jax.numpy as jnp
 
 from .config import DescriptorFormat, SiftConfig
 from .ops import extract, patches as patches_mod, scale_space
-from .ops import pallas_backhalf, pallas_frontend
 from .ops.descriptor import compute_descriptors
 from .ops.orientation import compute_orientations
 from .ops.patches import PatchSet
 from .types import Features
-from .utils.backend import is_tpu_backend
-
-
-# Refine-path selection (pallas back-half): pyramids up to this many DoG
-# cells take ONE global walk for all octaves; above it, octaves at least
-# _PER_OCTAVE_REFINE_MIN_W wide walk per-octave (live-count bucketed) and
-# the small-octave tail shares one global walk. Module-level so tests can
-# exercise the hybrid split on small images.
-import os as _os
-
-
-def _env_int(name: str, default: int) -> int:
-    raw = _os.environ.get(name)
-    if raw is None:
-        return default
-    try:
-        val = int(raw)
-        if val <= 0:
-            raise ValueError(f"must be > 0, got {val}")
-        return val
-    except ValueError as e:
-        import warnings
-        warnings.warn(f"ignoring bad {name}={raw!r}: {e}", stacklevel=2)
-        return default
-
-
-_GLOBAL_REFINE_MAX_CELLS = _env_int(
-    "VKSIFT_GLOBAL_REFINE_MAX_CELLS", 16_000_000)
-_PER_OCTAVE_REFINE_MIN_W = 1024
-# Octaves at least this wide take the Pallas dense-frontend kernel; below
-# it the XLA dense_frontend wins (kernel launch amortization). Round 2 set
-# 1024; a TPU-lowering op inventory showed every dense_frontend octave
-# with >262k DoG cells pays a jnp.searchsorted WHILE loop (~1-4 ms each —
-# two per frame at 1536x1024, one 915k-cell one in the 640x480 north-star
-# config), while the kernel's count-based 3-level select never does. 256
-# keeps every dense_frontend mask under the scatter rank-select limit.
-_FRONTEND_MIN_W = 256
 
 
 class DetectOutput(NamedTuple):
@@ -95,29 +48,32 @@ class DetectOutput(NamedTuple):
     per_octave_counts: jax.Array  # i32[nb_octaves]
 
 
-def _backhalf_xla(gaussians, o, refined, *, cfg: SiftConfig, oct_res,
-                  cap_o: int, octave_idx: int, patch_edge: int,
-                  ori_radius: int, desc_radius: int):
-    """Pure-XLA orientation+descriptor for one octave (runs anywhere)."""
+def _backhalf_octave(gaussians, o, refined, *, cfg: SiftConfig, oct_res,
+                     cap_o: int, octave_idx: int, patch_edge: int,
+                     ori_radius: int, desc_radius: int):
+    """Orientation + descriptor for one octave's refined keypoints."""
     ori_cap = cfg.orientation_capacity
     use_vlfeat = cfg.descriptor_format == DescriptorFormat.VLFEAT
 
     # Sigma-scaled sampling: top-scale keypoints sample the next octave at
     # half resolution (see patches.build_patchset).
-    ps = patches_mod.build_patchset(gaussians, o, refined, cfg, oct_res,
-                                    patch_edge)
-    ori = compute_orientations(ps, ori_radius=ori_radius, capacity=ori_cap)
+    with jax.named_scope("ComputeOrientation"):
+        ps = patches_mod.build_patchset(gaussians, o, refined, cfg, oct_res,
+                                        patch_edge)
+        ori = compute_orientations(ps, ori_radius=ori_radius,
+                                   capacity=ori_cap)
 
-    pair_valid = (ori.valid & refined.valid[:, None]).reshape(-1)
-    pair_total = jnp.sum(pair_valid, dtype=jnp.int32)
-    pair_count = jnp.minimum(pair_total, cap_o)
-    pidx, _ = extract.rank_select(pair_valid, cap_o)
-    parent = (pidx // ori_cap).astype(jnp.int32)
-    angle = ori.angles.reshape(-1)[pidx]
+        pair_valid = (ori.valid & refined.valid[:, None]).reshape(-1)
+        pair_total = jnp.sum(pair_valid, dtype=jnp.int32)
+        pair_count = jnp.minimum(pair_total, cap_o)
+        pidx, _ = extract.rank_select(pair_valid, cap_o)
+        parent = (pidx // ori_cap).astype(jnp.int32)
+        angle = ori.angles.reshape(-1)[pidx]
 
-    ps_pairs = PatchSet(*[a[parent] for a in ps])
-    desc = compute_descriptors(ps_pairs, angle, desc_radius=desc_radius,
-                               use_vlfeat=use_vlfeat)
+    with jax.named_scope("ComputeDescriptors"):
+        ps_pairs = PatchSet(*[a[parent] for a in ps])
+        desc = compute_descriptors(ps_pairs, angle, desc_radius=desc_radius,
+                                   use_vlfeat=use_vlfeat)
     in_count = jnp.arange(cap_o) < pair_count
     return dict(
         x=refined.x[parent], y=refined.y[parent],
@@ -151,22 +107,19 @@ def octave_plan(config: SiftConfig, width: int, height: int,
 
 
 def make_detect_fn(config: SiftConfig, width: int, height: int,
-                   *, return_pyramid: bool = False,
-                   backhalf: str = "auto", batched: bool = False,
-                   bucket: int = 1):
+                   *, return_pyramid: bool = False, bucket: int = 1):
     """Build the single-program detect function for one static resolution.
 
     Args:
       config: static configuration. ``max_nb_sift_per_buffer`` bounds the
-        output capacity AND (on the XLA back-half) the per-octave compute.
+        output capacity AND the per-octave back-half compute.
       width/height: static input resolution.
       return_pyramid: also return (gaussians, dogs) for the debug APIs.
-      backhalf: "xla" | "pallas" | "auto" (see module docstring).
       bucket: bucket size > 1 enables the resolution-bucketing mode:
         ``detect`` takes extra traced ``(valid_w, valid_h)`` scalars, the
         octave count is derived conservatively from the smallest resolution
         mapping to this bucket (one compiled program serves the whole
-        bucket — the TPU analogue of the reference's image re-creation on
+        bucket — the analogue of the reference's image re-creation on
         preallocated memory, sift_memory.c:891-924), and keypoints outside
         the valid region are masked out. Detection near the padded border
         can differ slightly from exact-resolution detection (the blur sees
@@ -188,92 +141,28 @@ def make_detect_fn(config: SiftConfig, width: int, height: int,
     desc_radius = patches_mod.max_descriptor_radius(cfg)
     capacity = cfg.max_nb_sift_per_buffer
 
-    if backhalf == "auto":
-        backhalf = "pallas" if is_tpu_backend() else "xla"
-
     def detect(image_u8: jax.Array, valid_w=None, valid_h=None):
         # jax.named_scope = the reference's per-stage debug-marker regions
-        # (sift_detector.c:29-50): names land in the HLO metadata, so XProf
-        # device traces attribute time to pipeline stages.
+        # (sift_detector.c:29-50): names land in the HLO metadata, so
+        # profiler device traces attribute time to pipeline stages.
         with jax.named_scope("ScaleSpace"):
             img = image_u8.astype(jnp.float32) * (1.0 / 255.0)
-            # Pallas fast path: blur layers write STRAIGHT into the
-            # back half's atlas bands (per-octave gaussian stacks are
-            # never materialized — they cost ~22 ms/frame of stack +
-            # atlas re-copies at 3456x2304, round-5 trace). The debug
-            # path (return_pyramid) keeps per-octave stacks.
-            atlas = None
-            if backhalf == "pallas" and not return_pyramid:
-                plan = (pallas_backhalf.atlas_plan(cfg, oct_res)
-                        if len(oct_res) else None)
-                atlas, dogs = scale_space.build_pyramid(
-                    img, cfg, oct_shapes, atlas_bands=plan)
-                gaussians = None
-            else:
-                gaussians, dogs = scale_space.build_pyramid(
-                    img, cfg, oct_shapes)
+            gaussians, dogs = scale_space.build_pyramid(img, cfg, oct_shapes)
 
         with jax.named_scope("ExtractKeypoints"):
-            cands = []
-            codes = []
+            refined_list = []
             for o, (ow, oh) in enumerate(oct_res):
-                cap_o = caps[o]
-                # The dense kernel column-tiles itself beyond 4096 lanes
-                # (VMEM budget), so any octave wide enough to amortize the
-                # kernel launch takes the Pallas path.
-                if (backhalf == "pallas" and not batched
-                        and _FRONTEND_MIN_W <= ow and oh >= 32):
-                    cand, code = pallas_frontend.frontend_tpu(
-                        dogs[o], dog_threshold=cfg.dog_threshold,
-                        capacity=cap_o)
-                else:
+                with jax.named_scope("DenseFrontend"):
                     cand, code = extract.dense_frontend(
-                        dogs[o], cfg.dog_threshold, cap_o)
-                cands.append(cand)
-                codes.append(code)
-
-            total_cells = sum((h * w) for (h, w) in oct_shapes) * (s + 2)
-            if backhalf == "pallas" and total_cells <= _GLOBAL_REFINE_MAX_CELLS:
-                # One walk for all octaves: the per-octave scans are
-                # gather-latency bound (5 gathers x nb_octaves -> 5
-                # gathers). Only worth it when the flat code/DoG concats
-                # are small; for large pyramids the copies outweigh the
-                # saved op overhead.
-                gref = extract.refine_candidates_global(
-                    dogs, cands, codes, nb_scales=s, oct_res=oct_res,
-                    dog_threshold=cfg.dog_threshold,
-                    edge_threshold=cfg.edge_threshold,
-                    seed_sigma=cfg.seed_scale_sigma,
-                    upsampling=cfg.use_input_upsampling)
-                refined_list = [gref.refined]
-            else:
-                # Hybrid: big octaves get per-octave live-count-bucketed
-                # walks (flat concats of their DoG would dominate);
-                # the small-octave TAIL shares one global walk — its flat
-                # copies are tiny while 5 walk + 9 final gathers PER small
-                # octave are pure per-op dispatch floors (~1 ms total).
-                nb_big = sum(1 for (ow, _) in oct_res
-                             if ow >= _PER_OCTAVE_REFINE_MIN_W)
-                refined_list = []
-                for o in range(nb_big if backhalf == "pallas" else nb_oct):
-                    ow, oh = oct_res[o]
-                    octave_idx = o - (1 if cfg.use_input_upsampling else 0)
+                        dogs[o], cfg.dog_threshold, caps[o])
+                octave_idx = o - (1 if cfg.use_input_upsampling else 0)
+                with jax.named_scope("Refine"):
                     refined_list.append(extract.refine_candidates(
-                        dogs[o], cands[o], nb_scales=s, width=ow,
+                        dogs[o], cand, nb_scales=s, width=ow,
                         height=oh, dog_threshold=cfg.dog_threshold,
                         edge_threshold=cfg.edge_threshold,
                         seed_sigma=cfg.seed_scale_sigma,
-                        octave_idx=octave_idx, code=codes[o]))
-                if backhalf == "pallas" and nb_big < nb_oct:
-                    gref = extract.refine_candidates_global(
-                        dogs[nb_big:], cands[nb_big:], codes[nb_big:],
-                        nb_scales=s, oct_res=oct_res[nb_big:],
-                        dog_threshold=cfg.dog_threshold,
-                        edge_threshold=cfg.edge_threshold,
-                        seed_sigma=cfg.seed_scale_sigma,
-                        upsampling=cfg.use_input_upsampling,
-                        octave_base=nb_big)
-                    refined_list.append(gref.refined)
+                        octave_idx=octave_idx, code=code))
             if bucketed and valid_w is not None:
                 # Drop keypoints detected in the bucket's padding region.
                 vw = jnp.asarray(valid_w, jnp.float32)
@@ -286,28 +175,14 @@ def make_detect_fn(config: SiftConfig, width: int, height: int,
             # gather chain per consumer.
             refined_list = jax.lax.optimization_barrier(refined_list)
 
-        if backhalf == "pallas":
-            # Whole-pyramid fused back half (atlas copies + histogram +
-            # 3 sigma-bucket descriptor kernels).
-            fields, count, per_octave, lost = pallas_backhalf.run_atlas(
-                gaussians, refined_list, extract.rank_select,
-                config=cfg, oct_res=oct_res, caps=caps, capacity=capacity,
-                atlas=atlas)
-            feats = Features(count=count, **fields)
-            out = DetectOutput(features=feats, lost=lost,
-                               per_octave_counts=per_octave)
-            if return_pyramid:
-                return out, gaussians, dogs
-            return out
-
-        # Pure-XLA back half: per octave, then pack.
+        # Back half: per octave, then pack.
         per_oct = []
         lost = jnp.zeros((), jnp.int32)
         counts = []
         for o, (ow, oh) in enumerate(oct_res):
             cap_o = caps[o]
             octave_idx = o - (1 if cfg.use_input_upsampling else 0)
-            fields, pair_count, pair_total = _backhalf_xla(
+            fields, pair_count, pair_total = _backhalf_octave(
                 gaussians, o, refined_list[o], cfg=cfg, oct_res=oct_res,
                 cap_o=cap_o, octave_idx=octave_idx,
                 patch_edge=patch_edge, ori_radius=ori_radius,
@@ -316,27 +191,28 @@ def make_detect_fn(config: SiftConfig, width: int, height: int,
             per_oct.append(fields)
             counts.append(pair_count)
 
-        valid = jnp.concatenate([d["valid"] for d in per_oct])
-        total = jnp.sum(valid, dtype=jnp.int32)
-        count = jnp.minimum(total, capacity)
-        lost = lost + (total - count)
-        keep, _ = extract.rank_select(valid, capacity)
-        in_range = jnp.arange(capacity) < count
+        with jax.named_scope("PackFeatures"):
+            valid = jnp.concatenate([d["valid"] for d in per_oct])
+            total = jnp.sum(valid, dtype=jnp.int32)
+            count = jnp.minimum(total, capacity)
+            lost = lost + (total - count)
+            keep, _ = extract.rank_select(valid, capacity)
+            in_range = jnp.arange(capacity) < count
 
-        def pack(name):
-            cat = jnp.concatenate([d[name] for d in per_oct], axis=0)
-            out = cat[keep]
-            mask = in_range if out.ndim == 1 else in_range[:, None]
-            return jnp.where(mask, out, jnp.zeros_like(out))
+            def pack(name):
+                cat = jnp.concatenate([d[name] for d in per_oct], axis=0)
+                out = cat[keep]
+                mask = in_range if out.ndim == 1 else in_range[:, None]
+                return jnp.where(mask, out, jnp.zeros_like(out))
 
-        feats = Features(
-            x=pack("x"), y=pack("y"),
-            scale_x=pack("scale_x"), scale_y=pack("scale_y"),
-            scale_idx=pack("scale_idx"), octave_idx=pack("octave_idx"),
-            sigma=pack("sigma"), orientation=pack("orientation"),
-            intensity=pack("intensity"), descriptor=pack("descriptor"),
-            count=count,
-        )
+            feats = Features(
+                x=pack("x"), y=pack("y"),
+                scale_x=pack("scale_x"), scale_y=pack("scale_y"),
+                scale_idx=pack("scale_idx"), octave_idx=pack("octave_idx"),
+                sigma=pack("sigma"), orientation=pack("orientation"),
+                intensity=pack("intensity"), descriptor=pack("descriptor"),
+                count=count,
+            )
         out = DetectOutput(features=feats, lost=lost,
                            per_octave_counts=jnp.stack(counts))
         if return_pyramid:
@@ -346,18 +222,13 @@ def make_detect_fn(config: SiftConfig, width: int, height: int,
     return detect
 
 
-def make_detect_batched(config: SiftConfig, width: int, height: int,
-                        backhalf: str = "auto"):
+def make_detect_batched(config: SiftConfig, width: int, height: int):
     """Batched multi-image detect: (B, H, W) u8 -> DetectOutput with leading
     batch dims (BASELINE config #4).
 
-    Implemented as ``lax.map`` (a scan) of the FULL single-image program:
-    the chip executes one image at a time anyway, so vmapping only forfeits
-    the dynamic-grid/dense Pallas kernels (the frontend kernel cannot be
-    vmapped, and vmapped back-half grids run at worst-case size) — measured
-    2.3x slower per frame than this formulation at 640x480. The scan keeps
-    per-frame cost equal to the single-image path while batching B images
-    into one dispatch (the multi-buffer pipelining contract,
+    Implemented as ``lax.map`` (a scan) of the full single-image program,
+    so per-frame work equals the single-image path while B images go out
+    in one dispatch (the multi-buffer pipelining contract,
     vksift_Config.sift_buffer_count)."""
-    detect = make_detect_fn(config, width, height, backhalf=backhalf)
+    detect = make_detect_fn(config, width, height)
     return lambda images: jax.lax.map(detect, images)

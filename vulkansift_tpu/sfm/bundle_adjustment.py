@@ -1,7 +1,7 @@
-"""Schur-complement bundle adjustment (single-chip and mesh-distributed).
+"""Schur-complement bundle adjustment (single-device and mesh-distributed).
 
 NEW design surface (the reference has no SfM; BASELINE.json configs #5).
-TPU-first formulation:
+Formulation:
 
 * Observations are a flat padded array (cam_idx, pt_idx, uv, weight) —
   static shapes, masked validity. Jacobians are exact (jax.jacfwd of the
@@ -11,11 +11,11 @@ TPU-first formulation:
   the reduced camera system ``S = U - W V^{-1} W^T`` is applied
   MATRIX-FREE inside conjugate gradients: per-observation 6x3 blocks, 3x3
   landmark inverses, and two ``segment_sum`` scatters per application —
-  all dense vector ops on TPU.
+  all dense vector ops on the device.
 * Distribution: observations shard over the mesh data axis with
   ``shard_map``; every segment_sum is followed by a ``psum``, so cameras
   and landmarks stay replicated while the O(nb_obs) work splits across
-  chips — the Schur-complement-over-collectives design from SURVEY.md §7.
+  devices — the Schur-complement-over-collectives design from SURVEY.md §7.
 
 The Huber robust weight matches standard BA practice (reweighted at each
 outer iteration).
@@ -31,7 +31,11 @@ import jax.numpy as jnp
 from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from .geometry import Camera, SE3, reproject
+from .geometry import HIGHEST, Camera, SE3, reproject
+
+# Full float32 contractions (see geometry.HIGHEST): TF32 would perturb the
+# normal equations and the reported cost.
+_einsum = functools.partial(jnp.einsum, precision=HIGHEST)
 
 
 class BAProblem(NamedTuple):
@@ -91,11 +95,11 @@ def _ba_step_terms(problem: BAProblem, huber_delta: float, psum=None):
 
     # IRLS normal-equation blocks: H = sum w J^T J, g = -sum w J^T r
     # (exactly one weighted factor per product).
-    utt = jnp.einsum("nki,nkj->nij", jp_w, jp)        # (N, 6, 6)
-    vtt = jnp.einsum("nki,nkj->nij", jx_w, jx)        # (N, 3, 3)
-    wtt = jnp.einsum("nki,nkj->nij", jp_w, jx)        # (N, 6, 3)
-    bc = -jnp.einsum("nki,nk->ni", jp_w, r)           # (N, 6)
-    bp = -jnp.einsum("nki,nk->ni", jx_w, r)           # (N, 3)
+    utt = _einsum("nki,nkj->nij", jp_w, jp)        # (N, 6, 6)
+    vtt = _einsum("nki,nkj->nij", jx_w, jx)        # (N, 3, 3)
+    wtt = _einsum("nki,nkj->nij", jp_w, jx)        # (N, 6, 3)
+    bc = -_einsum("nki,nk->ni", jp_w, r)           # (N, 6)
+    bp = -_einsum("nki,nk->ni", jx_w, r)           # (N, 3)
 
     def seg_c(x):
         out = jax.ops.segment_sum(x, problem.cam_idx, num_segments=nc)
@@ -138,18 +142,18 @@ def _solve_schur_cg(problem: BAProblem, terms, lam: jax.Array,
     v_inv = jnp.linalg.inv(v_d + 1e-9 * eye3)
 
     def apply_s(x):  # x: (C, 6)
-        y = jnp.einsum("cij,cj->ci", u_d, x)
-        wx = jnp.einsum("nji,nj->ni", wtt, x[cam_idx])     # Wᵀx per obs (3,)
+        y = _einsum("cij,cj->ci", u_d, x)
+        wx = _einsum("nji,nj->ni", wtt, x[cam_idx])     # Wᵀx per obs (3,)
         tp = seg_p(wx)                                      # (Pt, 3)
-        z = jnp.einsum("pij,pj->pi", v_inv, tp)             # (Pt, 3)
-        wz = jnp.einsum("nij,nj->ni", wtt, z[pt_idx])       # (N, 6)
+        z = _einsum("pij,pj->pi", v_inv, tp)             # (Pt, 3)
+        wz = _einsum("nij,nj->ni", wtt, z[pt_idx])       # (N, 6)
         y = y - seg_c(wz)
         return y
 
     # rhs: g_c - W V^{-1} g_p
-    z0 = jnp.einsum("pij,pj->pi", v_inv, terms["g_p"])
+    z0 = _einsum("pij,pj->pi", v_inv, terms["g_p"])
     rhs = terms["g_c"] - seg_c(
-        jnp.einsum("nij,nj->ni", wtt, z0[pt_idx]))
+        _einsum("nij,nj->ni", wtt, z0[pt_idx]))
 
     # Jacobi-preconditioned CG.
     diag = jnp.maximum(jnp.diagonal(u_d, axis1=-2, axis2=-1), 1e-6)
@@ -178,9 +182,9 @@ def _solve_schur_cg(problem: BAProblem, terms, lam: jax.Array,
     x, _, _, _ = jax.lax.fori_loop(0, nb_cg_iters, body, (x, r, p, rz))
 
     # Landmark back-substitution: dX = V^{-1} (g_p - Wᵀ dx).
-    wx = jnp.einsum("nji,nj->ni", wtt, x[cam_idx])
+    wx = _einsum("nji,nj->ni", wtt, x[cam_idx])
     tp = seg_p(wx)
-    dpt = jnp.einsum("pij,pj->pi", v_inv, terms["g_p"] - tp)
+    dpt = _einsum("pij,pj->pi", v_inv, terms["g_p"] - tp)
     return x, dpt
 
 
@@ -237,8 +241,9 @@ def make_distributed_ba(mesh: Mesh, axis_name: str = "data", *,
                         nb_iters: int = 10, nb_cg_iters: int = 20,
                         huber_delta: float = 3.0,
                         fix_first_pose: bool = True):
-    """Build a jitted multi-chip BA: observations sharded over ``axis_name``,
-    poses/landmarks replicated, segment sums reduced with psum over ICI.
+    """Build a jitted multi-device BA: observations sharded over
+    ``axis_name``, poses/landmarks replicated, segment sums reduced with
+    psum (NCCL all-reduce on GPUs).
 
     Returned ``fn(problem) -> BAResult`` requires ``nb_obs`` divisible by the
     mesh axis size (pad with invalid observations).

@@ -19,6 +19,20 @@ import jax
 import jax.numpy as jnp
 
 _EPS = 1e-12
+# Every float32 contraction in sfm/ asks for full float32 precision: on a
+# GPU the default may run in TF32 (about three decimal digits), which would
+# move reprojection residuals of sub-pixel size and the BA cost with them.
+HIGHEST = jax.lax.Precision.HIGHEST
+
+
+def matmul(a: jax.Array, b: jax.Array) -> jax.Array:
+    """``a @ b`` at full float32 precision."""
+    return jnp.matmul(a, b, precision=HIGHEST)
+
+
+def matvec(m: jax.Array, x: jax.Array) -> jax.Array:
+    """Batched ``m @ x`` for (…, i, j) matrices and (…, j) vectors."""
+    return jnp.einsum("...ij,...j->...i", m, x, precision=HIGHEST)
 
 
 # ---------------------------------------------------------------------------
@@ -46,7 +60,7 @@ def exp_so3(w: jax.Array) -> jax.Array:
                   (1.0 - jnp.cos(theta)) / jnp.maximum(theta2, _EPS))
     k = hat(w)
     eye = jnp.broadcast_to(jnp.eye(3), k.shape)
-    return eye + a * k + b * (k @ k)
+    return eye + a * k + b * matmul(k, k)
 
 
 def log_so3(r: jax.Array) -> jax.Array:
@@ -89,16 +103,15 @@ class SE3(NamedTuple):
         return SE3(exp_so3(wt[..., :3]), wt[..., 3:])
 
     def apply(self, x: jax.Array) -> jax.Array:
-        return jnp.einsum("...ij,...j->...i", self.r, x) + self.t
+        return matvec(self.r, x) + self.t
 
     def compose(self, other: "SE3") -> "SE3":
         """self ∘ other: first other, then self."""
-        return SE3(self.r @ other.r,
-                   jnp.einsum("...ij,...j->...i", self.r, other.t) + self.t)
+        return SE3(matmul(self.r, other.r), matvec(self.r, other.t) + self.t)
 
     def inverse(self) -> "SE3":
         rt = jnp.swapaxes(self.r, -1, -2)
-        return SE3(rt, -jnp.einsum("...ij,...j->...i", rt, self.t))
+        return SE3(rt, -matvec(rt, self.t))
 
     def log(self) -> jax.Array:
         """(…, 6) [log R, t] — consistent with from_tangent."""
@@ -152,15 +165,15 @@ def triangulate_linear(poses: SE3, rays: jax.Array,
     """
     # Ray direction in world frame; camera center in world frame.
     rt = jnp.swapaxes(poses.r, -1, -2)
-    d = jnp.einsum("nij,nj->ni", rt, rays)
-    c = -jnp.einsum("nij,nj->ni", rt, poses.t)
+    d = matvec(rt, rays)
+    c = -matvec(rt, poses.t)
     # For each view: (I - dd^T/|d|^2) (X - c) = 0
     dn = d / jnp.maximum(jnp.linalg.norm(d, axis=-1, keepdims=True), _EPS)
     p = (jnp.broadcast_to(jnp.eye(3), (d.shape[0], 3, 3))
          - dn[:, :, None] * dn[:, None, :])
     p = p * mask[:, None, None]
     a = jnp.sum(p, axis=0)
-    b = jnp.sum(jnp.einsum("nij,nj->ni", p, c), axis=0)
+    b = jnp.sum(matvec(p, c), axis=0)
     # Solve 3x3 (regularized for rank-deficient masks).
     a = a + 1e-9 * jnp.eye(3)
     x = jnp.linalg.solve(a, b)
@@ -190,13 +203,13 @@ def essential_8pt(r1: jax.Array, r2: jax.Array) -> jax.Array:
     e = vt[-1].reshape(3, 3)
     u, s, vt2 = jnp.linalg.svd(e)
     s_fixed = jnp.array([1.0, 1.0, 0.0]) * (s[0] + s[1]) * 0.5
-    return u @ jnp.diag(s_fixed) @ vt2
+    return matmul(u * s_fixed, vt2)
 
 
 def sampson_error(e: jax.Array, r1: jax.Array, r2: jax.Array) -> jax.Array:
     """First-order geometric (Sampson) error of ray pairs under E."""
-    ex1 = r1 @ e.T          # (N, 3) = E @ x1 per row
-    etx2 = r2 @ e           # (N, 3) = E^T @ x2
+    ex1 = matmul(r1, e.T)   # (N, 3) = E @ x1 per row
+    etx2 = matmul(r2, e)    # (N, 3) = E^T @ x2
     x2ex1 = jnp.sum(r2 * ex1, -1)
     denom = ex1[:, 0] ** 2 + ex1[:, 1] ** 2 + etx2[:, 0] ** 2 + etx2[:, 1] ** 2
     return x2ex1 ** 2 / jnp.maximum(denom, _EPS)
@@ -248,8 +261,8 @@ def decompose_essential(e: jax.Array, rays1: jax.Array, rays2: jax.Array,
     u = u * jnp.sign(jnp.linalg.det(u))
     vt = vt * jnp.sign(jnp.linalg.det(vt))
     w = jnp.array([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]])
-    r_a = u @ w @ vt
-    r_b = u @ w.T @ vt
+    r_a = matmul(matmul(u, w), vt)
+    r_b = matmul(matmul(u, w.T), vt)
     t_u = u[:, 2]
 
     def count_front(r, t):

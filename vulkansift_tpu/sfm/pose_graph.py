@@ -7,8 +7,8 @@ odometry). The residual of edge (i, j) with measurement Z_ij is
     r_ij = log( Z_ij^{-1} · T_i^{-1} · T_j )   in R^6,
 
 linearized with exact jax jacobians and solved densely (pose graphs are
-small — hundreds of nodes — so a (6N, 6N) solve on the MXU is the
-TPU-idiomatic choice over sparse factorization).
+small — hundreds of nodes — so a dense (6N, 6N) solve is simpler and
+fast enough compared with sparse factorization).
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-from .geometry import SE3
+from .geometry import SE3, matmul
 
 
 class PoseGraph(NamedTuple):
@@ -58,8 +58,8 @@ def optimize_pose_graph(graph: PoseGraph, *, nb_iters: int = 20,
         jmat = jax.jacfwd(res_fn)(flat)          # (6E, 6N) dense
         # Gauge fix: zero the first pose's columns.
         jmat = jmat.at[:, :6].set(0.0)
-        h = jmat.T @ jmat + damping * jnp.eye(6 * n)
-        g = jmat.T @ r
+        h = matmul(jmat.T, jmat) + damping * jnp.eye(6 * n)
+        g = matmul(jmat.T, r)
         dx = jnp.linalg.solve(h, -g)
         return (flat + dx).reshape(n, 6), jnp.sum(r * r)
 

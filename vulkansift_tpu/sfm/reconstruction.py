@@ -2,7 +2,7 @@
 triangulate -> bundle adjust.
 
 NEW design surface (BASELINE.json config #5). Device work (detection,
-matching, RANSAC, triangulation, BA) is JAX/TPU; the track bookkeeping
+matching, RANSAC, triangulation, BA) is JAX; the track bookkeeping
 (union-find over matches) is host-side NumPy — it is O(matches) pointer
 chasing with no parallel structure, the classic CPU-side role (the
 reference similarly keeps orchestration on the host, vulkansift.c).

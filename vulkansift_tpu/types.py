@@ -2,7 +2,7 @@
 
 The reference stores features as a 48-byte C struct header + 128 u8
 descriptor (``vksift_Feature``, reference: include/vulkansift/
-vulkansift_types.h:17-31) in sectioned GPU buffers. The TPU-native layout is
+vulkansift_types.h:17-31) in sectioned GPU buffers. The layout here is
 a **structure of arrays** pytree with a static capacity and a dynamic valid
 count — the XLA-idiomatic replacement for the reference's atomic-append
 buffers (see SURVEY.md §7 "dynamic keypoint counts").
